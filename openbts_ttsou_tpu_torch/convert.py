@@ -1,0 +1,57 @@
+"""Carry engine state between the JAX package and this port.
+
+The system has no learned parameters: what carries over between the two
+implementations is the engine state (`TrxState`, field for field) and the
+set-up constants, which the port recomputes itself. These helpers move a
+state given as numpy arrays (e.g. `{k: np.asarray(v) for k, v in
+jax_state._asdict().items()}`, or a state file's arrays) onto a device,
+and back.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from openbts_ttsou_tpu_torch.trx.engine import TrxState, resolve_device
+
+#: dtype of every TrxState field
+FIELD_DTYPES = {
+    "fn": np.int32,
+    "chan_type": np.int32,
+    "tsc": np.int32,
+    "max_expected_delay": np.int32,
+    "energy_threshold": np.float32,
+    "prev_false_detect_fn": np.int32,
+    "chan_valid": np.bool_,
+    "chan_response": np.complex64,
+    "chan_resp_offset": np.float32,
+    "chan_amplitude": np.complex64,
+    "snr": np.float32,
+    "dfe_forward": np.complex64,
+    "dfe_feedback": np.complex64,
+    "chan_estimate_fn": np.int32,
+    "filler": np.complex64,
+}
+
+
+def state_from_numpy(d, device="cuda") -> TrxState:
+    """TrxState of tensors on `device` from a mapping (or NamedTuple) of
+    array-likes with the TrxState field names."""
+    if not isinstance(d, Mapping):
+        d = d._asdict()
+    missing = set(TrxState._fields) - set(d)
+    if missing:
+        raise KeyError(f"state lacks fields {sorted(missing)}")
+    dev = resolve_device(device)
+    return TrxState(**{
+        name: torch.from_numpy(np.array(d[name], dtype=FIELD_DTYPES[name]))
+        .to(dev) for name in TrxState._fields})
+
+
+def state_to_numpy(state: TrxState) -> dict[str, np.ndarray]:
+    """{field: numpy array} of a TrxState, on the host."""
+    return {name: getattr(state, name).detach().cpu().numpy()
+            for name in TrxState._fields}
