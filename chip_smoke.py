@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only   # phases 1-2 only, no result line
 
 Phases (each one raises on failure; the script then exits non-zero and
 prints no result):
@@ -10,8 +11,10 @@ prints no result):
    kernel of the uplink path from `openbts_ttsou_tpu_torch/csrc/`;
 2. kernels: each kernel against its plain PyTorch version on the card,
    at the shapes the main path gives it (K1 at 65/96 · 961 taps on
-   [512, 24000] and 96/65 · 651 taps on [512, 16250]), with CUDA-event
-   times for the kernel, the plain version and one PyTorch library call;
+   [512, 24000] and 96/65 · 651 taps on [512, 16250]), with device times
+   (CUDA events, calls queued behind a device sleep) for the kernel, the
+   plain version and one PyTorch library call, the kernel's share of its
+   bound and its achieved bytes a second;
 3. main path: `Transceiver.process_uplink` on 512 carriers over 3
    consecutive 13-frame blocks of the bench recipe (bench.py:162-195),
    checked block by block, timed, with the kernels' launch counts;
@@ -42,6 +45,7 @@ BLOCKS = 3
 TIMED_REPS = 25
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
+SLEEP_CYCLES = 100_000_000  # torch.cuda._sleep ahead of timed calls, ~50 ms
 
 
 def log(msg: str) -> None:
@@ -57,18 +61,31 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def cuda_ms(fn, reps: int = TIMED_REPS) -> float:
-    """Median of `reps` CUDA-event times of fn(), after 3 warm calls."""
+def cuda_ms(fn, reps: int = TIMED_REPS) -> tuple[float, float]:
+    """Device time of fn(): the median of `reps` CUDA-event intervals,
+    each around one call, after 3 warm calls. The calls are queued behind
+    a ~50 ms device sleep, so the device runs them back to back and the
+    host's dispatch time stays out of the intervals; the second number is
+    the share of the sleep the host used to queue them (< 1: it kept
+    ahead)."""
     for _ in range(3):
         fn()
+    torch.cuda.synchronize()
+    s0, s1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    s0.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    s1.record()
+    t0 = time.perf_counter()
     for a, b in ev:
         a.record()
         fn()
         b.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in ev)
+    return (statistics.median(a.elapsed_time(b) for a, b in ev),
+            host_ms / s0.elapsed_time(s1))
 
 
 # ---- phase 1 ---------------------------------------------------------------
@@ -154,15 +171,30 @@ def phase_kernels() -> dict:
                             stride=q)
 
         bound, bound_by = resample_bound_ms(N_CHAN, t_in, p, q, lpf)
+        nbytes = N_CHAN * (t_in + fir.polyphase_output_len(t_in, p, q)) * 8
+
+        def kernel():
+            return cuda_fir.polyphase_resample_cuda(x, p, q, lpf)
+
+        def plain():
+            return cuda_fir.polyphase_resample_plain(x, p, q, lpf)
+
+        ms, ahead = cuda_ms(kernel)
+        plain_ms, _ = cuda_ms(plain)
+        library_ms, library_ahead = cuda_ms(library)
+        # the plain version copies its bank to the card on every call,
+        # which waits for the queue, so only the kernel and the library
+        # call are held to a queue that stays ahead
+        check(max(ahead, library_ahead) < 1,
+              f"K1 {p}/{q}: the host fell behind the device while timing "
+              f"(queue shares {ahead:.3f}, {library_ahead:.3f})")
         rows[(p, q)] = {
             "geometry": f"{p}/{q} {taps} taps [{N_CHAN}, {t_in}]",
             "max_abs_err": err, "max_abs_plain": scale,
-            "ms": cuda_ms(lambda: cuda_fir.polyphase_resample_cuda(
-                x, p, q, lpf)),
-            "plain_ms": cuda_ms(lambda: cuda_fir.polyphase_resample_plain(
-                x, p, q, lpf)),
-            "library_ms": cuda_ms(library),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound, "bound_by": bound_by,
+            "bound_share": bound / ms, "gbytes_per_s": nbytes / ms / 1e6,
+            "host_queue_share": {"kernel": ahead, "library": library_ahead},
         }
         record({"phase": "kernels", "kernel": "polyphase_resample",
                 **rows[(p, q)]})
@@ -412,6 +444,26 @@ def phase_card_vs_cpu() -> dict:
     return out
 
 
+def kernels_line(kern: dict, launches: dict) -> dict:
+    """The `kernels` record: K1 at the uplink shape, and every shape's
+    times beside its bound."""
+    up = kern[(65, 96)]
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_share",
+            "gbytes_per_s")
+    return {"kernels": [{
+        "name": "polyphase_resample", "route": "cuda",
+        "source": "openbts_ttsou_tpu_torch/csrc/polyphase_resample.cu",
+        "replaces": "openbts_ttsou_tpu/ops/pallas_fir.py:121",
+        "launches": launches["polyphase_resample"],
+        "max_abs_err": max(r["max_abs_err"] for r in kern.values()),
+        "ms": up["ms"], "plain_ms": up["plain_ms"],
+        "bound_ms": up["bound_ms"], "bound_by": up["bound_by"],
+        "library_ms": up["library_ms"], "bound_share": up["bound_share"],
+        "gbytes_per_s": up["gbytes_per_s"],
+        "shapes": [{"geometry": r["geometry"], **{k: r[k] for k in keys}}
+                   for r in kern.values()]}]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
@@ -420,21 +472,15 @@ def main() -> int:
     torch.manual_seed(0)
     card = phase_card()
     kern = phase_kernels()
+    if "--kernels-only" in sys.argv[1:]:  # phases 1-2: build and time
+        print(card, flush=True)
+        return 0
     main_path, trx, x = phase_main_path()
     phase_profile(trx.cfg, trx.spec, trx, x, main_path["ms_per_block"])
     del trx, x
     phase_card_vs_cpu()
 
-    up = kern[(65, 96)]
-    kernels = {"kernels": [{
-        "name": "polyphase_resample", "route": "cuda",
-        "source": "openbts_ttsou_tpu_torch/csrc/polyphase_resample.cu",
-        "replaces": "openbts_ttsou_tpu/ops/pallas_fir.py:121",
-        "launches": main_path["launches"]["polyphase_resample"],
-        "max_abs_err": up["max_abs_err"], "ms": up["ms"],
-        "plain_ms": up["plain_ms"], "bound_ms": up["bound_ms"],
-        "bound_by": up["bound_by"], "library_ms": up["library_ms"]}]}
-    print(json.dumps(kernels), flush=True)
+    print(json.dumps(kernels_line(kern, main_path["launches"])), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,7 @@ its counterpart in `openbts_ttsou_tpu_torch`. Detection decisions are
 compared exactly; floats within the tolerance stated at each check.
 """
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -132,6 +133,185 @@ def test_branch_table_computes_the_resampler(p, q, taps, T):
     want = (xs.astype(np.complex128) * taps_t[r]).sum(-1)
     got = cuda_fir.polyphase_resample_plain(t(x), p, q, lpf).numpy()
     _assert_resample_close(got, want)
+
+
+# ---- K1's tile plan, evaluated with the kernel's loops ---------------------
+
+def _copy_row(n, gs, dst_par, src_par, t_in):
+    """stage_tile's copies of one slab row: n samples from x_row[gs] on to
+    row words 0..n-1, whose first word has 16-byte parity dst_par (the
+    sample x_row[gs] src_par). Returns, for each word, the sample it gets
+    (-1: a zero), after checking each word is written once and each
+    16-byte copy is aligned at both ends."""
+    got = np.full(n, -2)
+
+    def put(i, s):
+        assert got[i] == -2, f"word {i} written twice"
+        got[i] = s if 0 <= s < t_in else -1
+
+    def one(i):
+        put(i, gs + i)
+
+    if dst_par == src_par:
+        h = dst_par
+        if h:
+            one(0)
+        for k in range((n - h) // 2):
+            i = h + 2 * k
+            s = gs + i
+            assert (dst_par + i) % 2 == 0 and (src_par + i) % 2 == 0
+            if 0 <= s < t_in:  # a 16-byte copy, src-size 8 past the end
+                put(i, s)
+                put(i + 1, s + 1)
+            else:
+                put(i, s)
+                one(i + 1)
+        if (n - h) % 2:
+            one(n - 1)
+    else:
+        for i in range(n):
+            one(i)
+    assert (got != -2).all()
+    return got
+
+
+@pytest.mark.parametrize("t_in", [40, 41])
+@pytest.mark.parametrize("gs", [-7, -1, 0, 3, 30])
+@pytest.mark.parametrize("dst_par,src_par", [(0, 0), (1, 1), (0, 1), (1, 0)])
+def test_slab_row_copies_each_sample_once(t_in, gs, dst_par, src_par):
+    got = _copy_row(17, gs, dst_par, src_par, t_in)
+    s = gs + np.arange(17)
+    np.testing.assert_array_equal(got, np.where((s >= 0) & (s < t_in), s, -1))
+
+
+def _store_order(n, p, h, nthreads):
+    """store_tile's walk over a tile's n outputs: (output, cycle, phase)
+    of every store, a lone one first when the row is off the 16-byte grid
+    (h = 1), then 16-byte pairs stepped without division, then a lone
+    last one."""
+    done = [(0, 0, 0)] if h else []
+    tid = np.arange(nthreads)
+    c = (h + 2 * tid) // p
+    r = h + 2 * tid - c * p
+    dc, dr = divmod(2 * nthreads, p)
+    k = tid.copy()
+    pairs = (n - h) // 2
+    while (k < pairs).any():
+        on = k < pairs
+        c1, r1 = c.copy(), r + 1
+        c1[r1 == p] += 1
+        r1[r1 == p] = 0
+        o = h + 2 * k
+        done += list(zip(o[on], c[on], r[on]))
+        done += list(zip(o[on] + 1, c1[on], r1[on]))
+        r, c, k = r + dr, c + dc, k + nthreads
+        c[r >= p] += 1
+        r[r >= p] -= p
+    if (n - h) % 2:
+        done.append((n - 1, (n - 1) // p, (n - 1) % p))
+    return np.array(done).reshape(-1, 3)
+
+
+@pytest.mark.parametrize("p,n", [(65, 2080), (96, 3072), (65, 1521), (7, 223)])
+@pytest.mark.parametrize("h", [0, 1])
+@pytest.mark.parametrize("nthreads", [224, 384])
+def test_store_walk_covers_each_output_once(p, n, h, nthreads):
+    o, c, r = _store_order(n, p, h, nthreads).T
+    np.testing.assert_array_equal(np.sort(o), np.arange(n))
+    np.testing.assert_array_equal(c * p + r, o)
+
+
+def _kernel_in_numpy(x, p, q, lpf):
+    """K1 on the CPU in float64, with the kernel's loops over the plan the
+    wrapper hands it: tile by tile, each slab row zero-filled outside the
+    input, each group's R phases (the last group may be short) from its
+    U-column window against its zero-padded taps, outputs stored in the
+    kernel's order; every output is checked to be written once."""
+    plan = cuda_fir.tile_plan(p, q, lpf.tobytes())
+    rows, t_in = x.shape
+    n_out = tfir.polyphase_output_len(t_in, p, q)
+    tiles = -(-(-(-n_out // p)) // plan.mt)
+    s = plan.row_stride
+    out = np.zeros((rows, n_out), np.complex128)
+    writes = np.zeros((rows, n_out), int)
+    for b in range(rows):
+        for tile in range(tiles):
+            m0 = tile * plan.mt
+            src = (m0 * q + plan.slab_start
+                   + np.arange(plan.mt)[:, None] * q + np.arange(s))
+            ok = (src >= 0) & (src < t_in)
+            slab = np.where(ok, x[b, np.clip(src, 0, t_in - 1)], 0)
+            stage = np.zeros((plan.mt, plan.out_stride), np.complex128)
+            for g in range(plan.groups):
+                w0 = int(plan.wb[g])
+                assert w0 + plan.u <= s  # the window stays in its row
+                win = slab[:, w0: w0 + plan.u].astype(np.complex128)
+                acc = win @ plan.taps[g].astype(np.float64).T  # [mt, r]
+                nr = min(plan.r, p - g * plan.r)
+                stage[:, g * plan.r: g * plan.r + nr] = acc[:, :nr]
+            first = m0 * p
+            n = min(plan.mt * p, n_out - first)
+            h = (b * n_out + first) % 2  # out's base is 16-byte aligned
+            for o, c, r in _store_order(n, p, h, plan.threads):
+                out[b, first + o] = stage[c, r]
+                writes[b, first + o] += 1
+    assert (writes == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("p,q,taps,T", GEOMETRIES + [
+    (3, 200, 31, 1000),    # runtime width
+    (7, 2, 50, 300),       # p not a multiple of R: a short last group
+    (7, 2, 50, 301),       # and odd T
+    (65, 96, 961, 1000),   # T shorter than one slab
+    (65, 96, 961, 5000),   # a partial last tile
+    (96, 65, 651, 4001),   # odd T, odd row length out
+    (65, 96, 1601, 3001),  # k_max 25: the runtime width at the uplink ratio
+    (3, 20962, 31, 62891),  # one cycle a tile: shared memory's limit on q
+])
+def test_tile_plan_computes_the_resampler(p, q, taps, T):
+    """The tile plan the wrapper passes to K1, run through the kernel's
+    loops in float64 numpy, equals the plain form and the JAX resampler
+    (tests/test_pallas.py:23's bound: float32 sums in another order)."""
+    x = cplx(np.random.default_rng(T + p), (2, T))
+    lpf = tfir.resampler_lpf(p, q, taps)
+    got = _kernel_in_numpy(x, p, q, lpf)
+    _assert_resample_close(
+        got, cuda_fir.polyphase_resample_plain(t(x), p, q, lpf).numpy())
+    _assert_resample_close(got, np.asarray(jfir.polyphase_resample(
+        x, p, q, jfir.resampler_lpf(p, q, taps))))
+
+
+def test_tile_plan_matches_the_kernel_source():
+    """The plan's instantiations, lanes and ring depth are the ones the
+    CUDA source compiles."""
+    src = (Path(__file__).resolve().parents[1] / "openbts_ttsou_tpu_torch"
+           / "csrc" / "polyphase_resample.cu").read_text()
+    inst = re.findall(r"^\s*INSTANCE\((\d+), (\d+), (\d+)\)$", src, re.M)
+    assert tuple(tuple(map(int, i)) for i in inst) == cuda_fir.INSTANCES
+    assert f"constexpr int kCycles = {cuda_fir.CYCLES};" in src
+    assert f"constexpr int kStages = {cuda_fir.STAGES};" in src
+    assert f"constexpr int kLanes = {cuda_fir.LANES};" in src
+    assert (f"launch<1, 0, {cuda_fir.RUNTIME_WARPS}, 1>" in src)
+
+
+@pytest.mark.parametrize("p,q,taps,fits", [
+    (3, 20962, 31, True), (3, 20963, 31, False),      # the largest q at p 3
+    (13985, 1, 31, True), (13986, 1, 31, False),      # the largest p at q 1
+])
+def test_tile_plan_stops_where_shared_memory_does(p, q, taps, fits):
+    """Two slab rows and two output rows of one cycle must fit a block's
+    shared memory (cuda_fir's docstring); one word past that the plan
+    raises instead of handing the kernel a tile it cannot hold."""
+    lpf = tfir.resampler_lpf(p, q, taps).tobytes()
+    if fits:
+        plan = cuda_fir.tile_plan(p, q, lpf)
+        assert plan.mt == 1
+        assert 2 * (plan.row_stride + plan.out_stride) * 8 <= (
+            cuda_fir.SMEM_BYTES - 8192)
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            cuda_fir.tile_plan(p, q, lpf)
 
 
 def test_cuda_wrapper_refuses_cpu_tensor():
