@@ -8,22 +8,40 @@ Phases (each one raises on failure; the script then exits non-zero and
 prints no result):
 
 1. card: name, power limit, torch/CUDA/nvcc versions; build every CUDA
-   kernel of the uplink path from `openbts_ttsou_tpu_torch/csrc/`;
+   kernel from `openbts_ttsou_tpu_torch/csrc/` and the native runtime
+   (`native/`, the daemon's sockets and queues);
 2. kernels: each kernel against its plain PyTorch version on the card,
-   at the shapes the main path gives it (K1 at 65/96 · 961 taps on
-   [512, 24000] and 96/65 · 651 taps on [512, 16250]), with device times
-   (CUDA events, calls queued behind a device sleep) for the kernel, the
-   plain version and one PyTorch library call, the kernel's share of its
-   bound and its achieved bytes a second;
-3. main path: `Transceiver.process_uplink` on 512 carriers over 3
+   at the shapes the main paths give it (K1 at 65/96 · 961 taps on
+   [512, 24000] (uplink) and [512, 24192] (duplex uplink with its two
+   96-sample halos), and at 96/65 · 651 taps on [512, 16250] and
+   [512, 16380] (duplex downlink with its 130-symbol carried tail)),
+   with the kernel instantiation each shape runs and device times (CUDA
+   events, calls queued behind a device sleep) for the kernel, the plain
+   version and one PyTorch library call, the kernel's share of its bound
+   and its achieved bytes a second;
+3. uplink: `Transceiver.process_uplink` on 512 carriers over 3
    consecutive 13-frame blocks of the bench recipe (bench.py:162-195),
    checked block by block, timed, with the kernels' launch counts;
-4. profile: one more block under torch.profiler (device busy and idle
-   share, device events, the kernels that take the time), and both exact
-   schedules timed on one block from one entry state, results compared;
+4. profile: one more uplink block under torch.profiler (device busy and
+   idle share, device events, the kernels that take the time), and both
+   exact schedules timed on one block from one entry state, results
+   compared;
 5. card against CPU: the batched exact schedule on adversarial streams
    (RACH frames, energy without detection, DFE carriers) on the card and
-   on the CPU, results and final state compared.
+   on the CPU, results and final state compared;
+6. duplex: `duplex_block_compact` on 512 carriers over 3 consecutive
+   blocks of one continuous stream (the bench recipe's uplink with its
+   halos, a downlink of known bits on slot 1 of every frame and filler
+   elsewhere), checked against `uplink_block` on the same blocks and by
+   demodulating the transmitted samples, timed, launches counted, one
+   block profiled;
+7. wire daemon: `BlockTrxDaemon` on the card over loopback UDP at 4
+   carriers (control-verb bring-up, downlink datagrams in, uplink
+   datagrams and the tx capture checked), its compact retire against its
+   dense retire; then `python -m openbts_ttsou_tpu_torch.trx.daemon` as
+   its own process, brought up and looped back over UDP, and stopped;
+8. card against CPU, duplex: `duplex_block_compact` on 2 blocks of the
+   adversarial streams at 4 carriers, on the card and on the CPU.
 
 Earlier lines are JSON records; the line before the last is the card's
 name and power limit; the last line is the result object.
@@ -46,6 +64,12 @@ TIMED_REPS = 25
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 SLEEP_CYCLES = 100_000_000  # torch.cuda._sleep ahead of timed calls, ~50 ms
+#: K1's shapes on the main paths, (p, q, taps, T) on [N_CHAN, T]: the
+#: uplink, its downlink stimulus, and the duplex block's two calls
+K1_SHAPES = ((65, 96, 961, 24000), (96, 65, 651, 16250),
+             (65, 96, 961, 24192), (96, 65, 651, 16380))
+DAEMON_CHAN = 4  # carriers of the wire daemon (each binds 2 UDP ports)
+DAEMON_PORT = 52000  # its base port; the BTS side listens 50 above
 
 
 def log(msg: str) -> None:
@@ -99,16 +123,22 @@ def phase_card() -> str:
 
     nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
+    from openbts_ttsou_tpu_torch.runtime import native
+
     t0 = time.perf_counter()
     out = build.build_all()
     build_s = time.perf_counter() - t0
     for name, text in out.items():
         log(f"nvcc {name}:\n{text}")
+    t0 = time.perf_counter()
+    native.load_runtime()
+    native_s = time.perf_counter() - t0
     record({"phase": "card", "card": card,
             "device": torch.cuda.get_device_name(0),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "nvcc": nvcc[-1], "python": sys.version.split()[0],
-            "kernels_built": sorted(out), "build_s": build_s})
+            "kernels_built": sorted(out), "build_s": build_s,
+            "native_runtime_s": native_s})
     return card
 
 
@@ -142,10 +172,15 @@ def phase_kernels() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
-    for p, q, taps, t_in in ((65, 96, 961, 24000), (96, 65, 651, 16250)):
+    for p, q, taps, t_in in K1_SHAPES:
         x = torch.randn((N_CHAN, t_in), dtype=torch.complex64, device="cuda",
                         generator=gen)
         lpf = fir.resampler_lpf(p, q, taps)
+        # every shape of the system runs a compile-time instantiation;
+        # the runtime-width one must not take them quietly
+        inst = cuda_fir.instantiation(p, q, lpf)
+        check(inst != "runtime",
+              f"K1 {p}/{q} [{N_CHAN}, {t_in}]: runtime-width instantiation")
         got = cuda_fir.polyphase_resample_cuda(x, p, q, lpf)
         want = cuda_fir.polyphase_resample_plain(x, p, q, lpf)
         torch.cuda.synchronize()
@@ -188,8 +223,9 @@ def phase_kernels() -> dict:
         check(max(ahead, library_ahead) < 1,
               f"K1 {p}/{q}: the host fell behind the device while timing "
               f"(queue shares {ahead:.3f}, {library_ahead:.3f})")
-        rows[(p, q)] = {
+        rows[(p, q, t_in)] = {
             "geometry": f"{p}/{q} {taps} taps [{N_CHAN}, {t_in}]",
+            "instantiation": inst,
             "max_abs_err": err, "max_abs_plain": scale,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound, "bound_by": bound_by,
@@ -197,33 +233,59 @@ def phase_kernels() -> dict:
             "host_queue_share": {"kernel": ahead, "library": library_ahead},
         }
         record({"phase": "kernels", "kernel": "polyphase_resample",
-                **rows[(p, q)]})
+                **rows[(p, q, t_in)]})
     return rows
 
 
 # ---- phase 3 ---------------------------------------------------------------
 
-def bench_samples(spec) -> torch.Tensor:
-    """The bench recipe (bench.py:162-195): noise σ 10 with a TSC-0 burst
-    of amplitude 9000 at symbol f·1250+157 of every frame, brought to
-    the device rate by K1 at 96/65 · 651 taps."""
-    from openbts_ttsou_tpu_torch.ops import fir, gmsk
+def bench_symbols(frames: int) -> np.ndarray:
+    """The bench recipe (bench.py:162-195) at the symbol rate: noise σ 10
+    with a TSC-0 burst of amplitude 9000 at symbol f·1250+157 of every
+    frame, [N_CHAN, frames·1250] complex64."""
+    from openbts_ttsou_tpu_torch.ops import gmsk
     from openbts_ttsou_tpu_torch.utils import constants as C
 
     rng = np.random.default_rng(0)
-    sym = (rng.standard_normal((N_CHAN, spec.block_symbols))
-           + 1j * rng.standard_normal((N_CHAN, spec.block_symbols))
+    n = frames * 1250
+    sym = (rng.standard_normal((N_CHAN, n))
+           + 1j * rng.standard_normal((N_CHAN, n))
            ).astype(np.complex64) * 10.0
     bits = np.concatenate(
         [[0, 0, 0], rng.integers(0, 2, 57), [1], C.TRAINING_SEQUENCE[0], [1],
          rng.integers(0, 2, 57), [0, 0, 0]]).astype(np.uint8)
     wave = 9000.0 * gmsk.modulate_burst_np(bits[None], 1)[0]
-    for f in range(spec.frames):
+    for f in range(frames):
         off = f * 1250 + 157
         sym[:, off: off + 148] += wave
-    dev = fir.polyphase_resample(torch.from_numpy(sym).cuda(), 96, 65,
-                                 fir.resampler_lpf(96, 65, 651))
+    return sym
+
+
+def to_device_rate(sym: np.ndarray) -> torch.Tensor:
+    """Symbol-rate stream → device rate on the card, by K1 at 96/65 ·
+    651 taps."""
+    from openbts_ttsou_tpu_torch.ops import fir
+
+    return fir.polyphase_resample(torch.from_numpy(sym).cuda(), 96, 65,
+                                  fir.resampler_lpf(96, 65, 651))
+
+
+def bench_samples(spec) -> torch.Tensor:
+    """One block of the bench recipe at the device rate."""
+    dev = to_device_rate(bench_symbols(spec.frames))
     return dev[:, : spec.block_in].contiguous()
+
+
+def to_i16(x: torch.Tensor) -> torch.Tensor:
+    """complex64 [..., T] → int16 I/Q [..., T, 2], the radio's ADC
+    format (rounded half to even, clipped like USRPifyVector)."""
+    iq = torch.stack([x.real, x.imag], -1)
+    return torch.clamp(torch.round(iq), -32767.0, 32767.0).to(torch.int16)
+
+
+def from_i16(x: torch.Tensor) -> torch.Tensor:
+    return torch.complex(x[..., 0].to(torch.float32),
+                         x[..., 1].to(torch.float32))
 
 
 def new_transceiver(cfg, spec):
@@ -231,7 +293,7 @@ def new_transceiver(cfg, spec):
     from openbts_ttsou_tpu_torch.trx.engine import ChanType
 
     trx = Transceiver(cfg, spec, device="cuda")
-    ct = torch.full((N_CHAN, 8), ChanType.I, dtype=torch.int32,
+    ct = torch.full((cfg.n_chan, 8), ChanType.I, dtype=torch.int32,
                     device="cuda")
     ct[:, 0] = ChanType.IV
     trx.state = trx.state._replace(chan_type=ct)
@@ -292,30 +354,15 @@ def phase_main_path():
 def phase_profile(cfg, spec, trx, x, ms_block: float) -> dict:
     """Where a 512-carrier block's time goes.
 
-    One more block under torch.profiler: device busy time (the sum of
-    device-side events, kernels and copies, on one stream) against the
-    block's unprofiled wall time from phase 3, the number of device-side
-    events, and the ones that take the most time. Then both exact
-    schedules on one block from one entry state, timed and compared: the
+    One more block under torch.profiler (`device_profile`, against the
+    block's unprofiled wall time from phase 3). Then both exact schedules
+    on one block from one entry state, timed and compared: the
     frame-by-frame `rx_step` loop (the main path above 128 carriers) and
     the batched `process_block_exact`."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from openbts_ttsou_tpu_torch.models import transceiver as T
     from openbts_ttsou_tpu_torch.ops import fir
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        trx.process_uplink(x)
-        torch.cuda.synchronize()
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
-    top = sorted(dev_events, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:10]
-    check(busy_ms > 0, "the profiler saw no device time")
+    prof = device_profile(lambda: trx.process_uplink(x), ms_block)
 
     sym = fir.polyphase_resample(
         x, spec.p, spec.q, fir.resampler_lpf(spec.p, spec.q, spec.taps)
@@ -340,15 +387,40 @@ def phase_profile(cfg, spec, trx, x, ms_block: float) -> dict:
           "schedules differ in soft bits")
     check(torch.equal(sa.energy_threshold, sb.energy_threshold),
           "schedules differ in the threshold walk")
-    out = {"phase": "profile", "device_busy_ms": busy_ms,
-           "ms_per_block_unprofiled": ms_block,
-           "device_idle_share": 1 - busy_ms / ms_block,
-           "device_events": sum(e.count for e in dev_events),
-           "top": [{"name": e.key[:70], "count": e.count,
-                    "ms": e.self_device_time_total / 1e3} for e in top],
-           "schedule_ms": sched_ms}
+    out = {"phase": "profile", **prof, "schedule_ms": sched_ms}
     record(out)
     return out
+
+
+def device_profile(fn, ms_block: float) -> dict:
+    """fn() once under torch.profiler: device busy time (the sum of
+    device-side events, kernels and copies, on one stream) against the
+    unprofiled wall time `ms_block`, the number of device-side events,
+    the ones that take the most time, and the host-side ops that take
+    the most host time (their self time, profiled)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dev_events = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    top = sorted(dev_events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:10]
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
+    check(busy_ms > 0, "the profiler saw no device time")
+    return {"device_busy_ms": busy_ms, "ms_per_block_unprofiled": ms_block,
+            "device_idle_share": 1 - busy_ms / ms_block,
+            "device_events": sum(e.count for e in dev_events),
+            "top": [{"name": e.key[:70], "count": e.count,
+                     "ms": e.self_device_time_total / 1e3} for e in top],
+            "host_top": [{"name": e.key[:70], "count": e.count,
+                          "ms": e.self_cpu_time_total / 1e3} for e in host]}
 
 
 # ---- phase 5 ---------------------------------------------------------------
@@ -392,24 +464,47 @@ def adversarial_streams(rng, c, frames, blocks):
     return streams
 
 
-def phase_card_vs_cpu() -> dict:
+def adversarial_state(cfg, dev):
+    """Entry state of the adversarial streams: slot 0 combination V on
+    carriers 0-1 and IV on 2-3, TSC 2, SETMAXDELAY 2, 2, 0, 4 (the DFE
+    runs on carriers 0, 1 and 3)."""
+    from openbts_ttsou_tpu_torch.trx.engine import ChanType, init_state
+
+    c = cfg.n_chan
+    ct = torch.full((c, 8), ChanType.I, dtype=torch.int32)
+    ct[:2, 0] = ChanType.V
+    ct[2:, 0] = ChanType.IV
+    return init_state(cfg, dev)._replace(
+        chan_type=ct.to(dev),
+        tsc=torch.full((c,), 2, dtype=torch.int32, device=dev),
+        max_expected_delay=torch.tensor([2, 2, 0, 4], dtype=torch.int32,
+                                        device=dev))
+
+
+def check_states(card_state, cpu_state, what: str) -> None:
+    """Integer and bool fields exact; float fields (the DFE adoption's
+    channel and equalizer, float32 sums in another order on the card)
+    within atol 2e-4, rtol 5e-6."""
     from openbts_ttsou_tpu_torch.convert import state_to_numpy
+
+    sh = state_to_numpy(cpu_state)
+    for name, a in state_to_numpy(card_state).items():
+        b = sh[name]
+        if a.dtype == bool or np.issubdtype(a.dtype, np.integer):
+            check(np.array_equal(a, b), f"{what}: state {name}")
+        else:
+            check(np.allclose(a, b, atol=2e-4, rtol=5e-6),
+                  f"{what}: state {name} differs by {np.abs(a - b).max()}")
+
+
+def phase_card_vs_cpu() -> dict:
     from openbts_ttsou_tpu_torch.models.transceiver import process_block_exact
-    from openbts_ttsou_tpu_torch.trx.engine import ChanType, TrxConfig, init_state
+    from openbts_ttsou_tpu_torch.trx.engine import TrxConfig
 
     c, frames = 4, 13
     cfg = TrxConfig(n_chan=c, max_toa=8)
     streams = adversarial_streams(np.random.default_rng(5), c, frames, 3)
-    states = {}
-    for dev in ("cuda", "cpu"):
-        ct = torch.full((c, 8), ChanType.I, dtype=torch.int32)
-        ct[:2, 0] = ChanType.V
-        ct[2:, 0] = ChanType.IV
-        states[dev] = init_state(cfg, dev)._replace(
-            chan_type=ct.to(dev),
-            tsc=torch.full((c,), 2, dtype=torch.int32, device=dev),
-            max_expected_delay=torch.tensor([2, 2, 0, 4], dtype=torch.int32,
-                                            device=dev))
+    states = {dev: adversarial_state(cfg, dev) for dev in ("cuda", "cpu")}
     n_det = n_rach = n_dfe = 0
     for k, sym in enumerate(streams):
         res = {}
@@ -422,15 +517,7 @@ def phase_card_vs_cpu() -> dict:
                   f"block {k}: {name} differs between card and CPU")
         err = float((g.soft_bits.cpu() - h.soft_bits).abs().max())
         check(err <= 2e-4, f"block {k}: soft bits differ by {err}")
-        sg, sh = state_to_numpy(states["cuda"]), state_to_numpy(states["cpu"])
-        for name, a in sg.items():
-            b = sh[name]
-            if a.dtype == bool or np.issubdtype(a.dtype, np.integer):
-                check(np.array_equal(a, b), f"block {k}: state {name}")
-            else:
-                check(np.allclose(a, b, atol=2e-4, rtol=5e-6),
-                      f"block {k}: state {name} differs by "
-                      f"{np.abs(a - b).max()}")
+        check_states(states["cuda"], states["cpu"], f"block {k}")
         n_det += int(h.detected.sum())
         n_rach += int(h.is_rach.sum())
         n_dfe += int(states["cpu"].chan_valid.sum())
@@ -444,17 +531,546 @@ def phase_card_vs_cpu() -> dict:
     return out
 
 
+# ---- phase 6 ---------------------------------------------------------------
+
+def close_int(a, b, what: str) -> int:
+    """Integers within ±1, at most 0.1% of them off by 1 (float32 sums in
+    another order move a value across a rounding edge). Returns how many
+    are off by 1."""
+    d = np.abs(np.asarray(a, np.int64) - np.asarray(b, np.int64))
+    check(d.shape == np.shape(a) == np.shape(b), f"{what}: shapes differ")
+    off = int((d > 0).sum())
+    check(d.max(initial=0) <= 1, f"{what}: max difference {d.max()}")
+    check(off <= 1e-3 * d.size, f"{what}: {off} of {d.size} off by 1")
+    return off
+
+
+def be32(b: np.ndarray) -> np.ndarray:
+    """Big-endian uint8 [..., 4] → int64 [...]."""
+    return b.astype(np.int64) @ np.array([1 << 24, 1 << 16, 1 << 8, 1])
+
+
+def demod_slot1(tx_i16: torch.Tensor, full_scale: float,
+                frames: int) -> torch.Tensor:
+    """Hard bits of slot 1 of every frame of one block's transmitted
+    samples: int16 [C, block_in, 2] → K1 at 65/96 · 961 taps back to
+    symbols (the block's stream starts 65 symbols early, the carried
+    tail) → GMSK demodulation at the transmit amplitude. Returns
+    [C, frames, 148] uint8 (tests/test_block_daemon.py:209-230)."""
+    from openbts_ttsou_tpu_torch.ops import fir, gmsk
+
+    sym = fir.polyphase_resample(from_i16(tx_i16).contiguous(), 65, 96,
+                                 fir.resampler_lpf(65, 96, 961))
+    idx = 65 + 157 + np.arange(frames)[:, None] * 1250 + np.arange(157)
+    win = sym[:, torch.from_numpy(idx).to(sym.device)]  # [C, F, 157]
+    lead = win.shape[:2]
+    soft = gmsk.demodulate_burst(
+        win, 1, torch.full(lead, full_scale, dtype=torch.complex64,
+                           device=win.device),
+        torch.zeros(lead, device=win.device))
+    return (soft[..., :148] > 0.5).to(torch.uint8)
+
+
+def phase_duplex() -> dict:
+    """`duplex_block_compact` at 512 carriers on BLOCKS consecutive blocks
+    of one continuous stream, with the known answers of both directions.
+
+    Uplink: the bench recipe's block repeated as one stream, cut into
+    windows with their 96-sample halos (a cold left halo on the first),
+    as int16 I/Q; each block must give what `uplink_block` gives on the
+    same samples (detections, RSSI, timing, soft bytes ±1, thresholds,
+    final state) and the bench recipe's known answer. Downlink: known
+    bits on slot 1 of every frame of every carrier, filler elsewhere;
+    each block's DAC rows, resampled back and demodulated, must give
+    those bits."""
+    from openbts_ttsou_tpu_torch.models import transceiver as T
+    from openbts_ttsou_tpu_torch.ops import cuda_fir
+    from openbts_ttsou_tpu_torch.trx.engine import TrxConfig
+
+    cfg = TrxConfig(n_chan=N_CHAN)
+    spec = T.UplinkSpec(frames=13)
+    f, halo, t_in = spec.frames, T.RX_HALO_DEV, spec.block_in
+    # phase 3's block repeated as one periodic stream (its known answer
+    # holds for that noise draw), BLOCKS blocks and one more frame for
+    # the last block's right halo
+    sym = np.tile(bench_symbols(f), (1, BLOCKS + 1))
+    dev = to_device_rate(sym[:, : (BLOCKS * f + 1) * 1250])
+    del sym
+    ul = to_i16(dev[:, : BLOCKS * t_in + halo])
+    del dev
+    ul = torch.cat([torch.zeros((N_CHAN, halo, 2), dtype=torch.int16,
+                                device="cuda"), ul], 1)
+    windows = [ul[:, k * t_in: (k + 1) * t_in + 2 * halo].cpu().numpy()
+               for k in range(BLOCKS)]
+    del ul
+    rng = np.random.default_rng(1)
+    dl_bits = np.zeros((BLOCKS, f, N_CHAN, 8, 148), np.uint8)
+    dl_bits[:, :, :, 1] = rng.integers(0, 2, (BLOCKS, f, N_CHAN, 148))
+    valid = np.zeros((f, N_CHAN, 8), bool)
+    valid[:, :, 1] = True
+    gain = np.zeros((f, N_CHAN, 8), np.int64)
+    live = np.ones(N_CHAN, bool)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bufs = [torch.from_numpy(T.pack_dl_buffer_live(
+        dl_bits[k], valid, gain, k * f, k * f + 2, windows[k], live)).cuda()
+        for k in range(BLOCKS)]
+    torch.cuda.synchronize()
+    pack_ms = (time.perf_counter() - t0) / BLOCKS * 1e3
+
+    st0 = new_transceiver(cfg, spec).state
+    tail0 = torch.zeros((N_CHAN, T.TX_TAIL_SYM), dtype=torch.complex64,
+                        device="cuda")
+    T.duplex_block_compact(cfg, spec, st0, bufs[0], tail0)  # warm block
+    torch.cuda.synchronize()
+
+    st, tail, outs, thresholds = st0, tail0, [], []
+    cuda_fir.polyphase_resample_cuda.launches = 0
+    t0 = time.perf_counter()
+    for k in range(BLOCKS):
+        st, tail, hdr, tx_buf, pkt_buf = T.duplex_block_compact(
+            cfg, spec, st, bufs[k], tail)
+        outs.append((hdr, tx_buf, pkt_buf))
+        thresholds.append(st.energy_threshold)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"polyphase_resample": cuda_fir.polyphase_resample_cuda.launches}
+    check(launches["polyphase_resample"] == 2 * BLOCKS,
+          f"K1 launched {launches['polyphase_resample']} times in {BLOCKS} "
+          f"duplex blocks, expected 2 a block")
+    ms_block = dt / BLOCKS * 1e3
+    prof = device_profile(lambda: T.duplex_block_compact(
+        cfg, spec, st, bufs[0], tail), ms_block)
+
+    # uplink_block on the same samples, timed in turns with a second
+    # duplex chain from the entry state (the host's speed drifts within a
+    # call, so the two are compared block by block); the second chain
+    # must repeat the first one's bytes
+    ref_st, st2, tail2, refs, dup_ms, up_ms = st0, st0, tail0, [], [], []
+    for k in range(BLOCKS):
+        x = from_i16(torch.from_numpy(windows[k]).cuda()
+                     )[:, halo: halo + t_in].contiguous()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st2, tail2, *again = T.duplex_block_compact(cfg, spec, st2, bufs[k],
+                                                    tail2)
+        torch.cuda.synchronize()
+        dup_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        ref_st, res = T.uplink_block(cfg, spec, ref_st, x)
+        torch.cuda.synchronize()
+        up_ms.append((time.perf_counter() - t0) * 1e3)
+        refs.append((res, ref_st.energy_threshold))
+        hdr, tx_buf, pkt_buf = outs[k]
+        n_det, n_live = int(be32(hdr.cpu().numpy()[:4])), N_CHAN
+        check(torch.equal(again[0], hdr)
+              and torch.equal(again[1][:n_live], tx_buf[:n_live])
+              and torch.equal(again[2][:n_det], pkt_buf[:n_det]),
+              f"duplex block {k}: a second run gave other bytes")
+
+    # the known answers
+    soft_off = 0
+    fr = np.repeat(np.arange(f), N_CHAN)
+    ch = np.tile(np.arange(N_CHAN), f)
+    for k, ((hdr, tx_buf, pkt_buf), (res, ref_thr)) in enumerate(
+            zip(outs, refs)):
+        det = res.detected
+        check(int(det.sum()) == N_CHAN * f and bool(det[:, :, 1].all()),
+              f"duplex block {k}: uplink_block found {int(det.sum())}")
+        check(not bool(res.is_rach.any()), f"duplex block {k}: RACH")
+        check(bool((res.timing[det] == 6).all()), f"duplex block {k}: timing")
+        h = hdr.cpu().numpy()
+        n_det, n_live = int(be32(h[:4])), int(be32(h[4:]))
+        check(n_det == N_CHAN * f, f"duplex block {k}: n_det {n_det}")
+        check(n_live == N_CHAN, f"duplex block {k}: n_live {n_live}")
+        # rows in (frame, carrier) order, all slot 1: tn, fn (BE32), rssi,
+        # toa (BE16), 148 soft bytes, 2 zero bytes, carrier (BE16)
+        rows = pkt_buf[:n_det].cpu().numpy()
+        check(bool((rows[:, 0] == 1).all()), f"duplex block {k}: tn bytes")
+        check(np.array_equal(be32(rows[:, 1:5]), k * f + fr),
+              f"duplex block {k}: fn bytes")
+        check(np.array_equal(rows[:, 5], (res.rssi[:, :, 1].reshape(-1)
+                                          & 0xFF).cpu().numpy()),
+              f"duplex block {k}: rssi bytes")
+        check(bool((rows[:, 6] == 0).all() and (rows[:, 7] == 6).all()),
+              f"duplex block {k}: toa bytes")
+        check(bool((rows[:, 156:158] == 0).all()), f"duplex block {k}: pad")
+        check(np.array_equal(rows[:, 158].astype(np.int64) * 256
+                             + rows[:, 159], ch),
+              f"duplex block {k}: carrier indices")
+        soft_ref = torch.clamp(torch.round(res.soft_bits[:, :, 1] * 255.0),
+                               0.0, 255.0).reshape(-1, 148)
+        soft_off += close_int(rows[:, 8:156], soft_ref.cpu().numpy(),
+                              f"duplex block {k}: soft bytes")
+        check(torch.equal(thresholds[k], ref_thr)
+              and bool((thresholds[k] == 250.0 - 13 * (k + 1)).all()),
+              f"duplex block {k}: threshold {thresholds[k].unique().tolist()}")
+        tx = tx_buf[:n_live].view(torch.int16).reshape(n_live, t_in, 2)
+        hard = demod_slot1(tx, cfg.tx_full_scale, f)
+        want = torch.from_numpy(dl_bits[k][:, :, 1]).cuda().transpose(0, 1)
+        check(torch.equal(hard, want),
+              f"duplex block {k}: {int((hard != want).sum())} tx bits wrong")
+    for name in st._fields:
+        check(torch.equal(getattr(st, name), getattr(ref_st, name)),
+              f"duplex: final state {name} differs from uplink_block's")
+    out = {"phase": "duplex", "carriers": N_CHAN, "blocks": BLOCKS,
+           "ms_per_block": ms_block,
+           "uplink_msamples_per_s": N_CHAN * t_in / (dt / BLOCKS) / 1e6,
+           "downlink_msamples_per_s": N_CHAN * t_in / (dt / BLOCKS) / 1e6,
+           "host_pack_and_upload_ms_per_block": pack_ms,
+           "in_turns_ms": {"duplex_block_compact": dup_ms,
+                           "uplink_block": up_ms},
+           "detections_per_block": N_CHAN * f, "live_carriers": N_CHAN,
+           "soft_bytes_off_by_1": soft_off,
+           "launches": launches,
+           "launches_per_block": {k: v / BLOCKS for k, v in launches.items()},
+           "profile": prof, "device": torch.cuda.get_device_name(0)}
+    record(out)
+    return out
+
+
+# ---- phase 7 ---------------------------------------------------------------
+
+def norm_burst(seed: int) -> np.ndarray:
+    """A TSC-0 normal burst with random data bits."""
+    from openbts_ttsou_tpu_torch.utils import constants as C
+
+    rng = np.random.default_rng(seed)
+    return np.concatenate(
+        [[0, 0, 0], rng.integers(0, 2, 57), [1], C.TRAINING_SEQUENCE[0], [1],
+         rng.integers(0, 2, 57), [0, 0, 0]]).astype(np.uint8)
+
+
+def daemon_uplink(c: int, blocks: int) -> tuple[np.ndarray, np.ndarray]:
+    """The replay radio's uplink: a normal burst of amplitude 5000 on
+    slots 1-7 of every frame (its own bits a slot and carrier), `blocks`
+    blocks and a right halo at the device rate. Returns (bits [C, 8,
+    148], complex64 [C, N])."""
+    from openbts_ttsou_tpu_torch.models.transceiver import RX_HALO_DEV
+    from openbts_ttsou_tpu_torch.ops import gmsk
+
+    frames = 13 * blocks
+    offs = np.concatenate([[0], np.cumsum([157, 156, 156, 156] * 2)])[:8]
+    bits = np.zeros((c, 8, 148), np.uint8)
+    sym = np.zeros((c, frames * 1250), np.complex64)
+    for ch in range(c):
+        for tn in range(1, 8):
+            bits[ch, tn] = norm_burst(10 * ch + tn)
+            w = 5000.0 * gmsk.modulate_burst_np(bits[ch, tn][None], 1)[0]
+            for fr in range(frames):
+                o = fr * 1250 + offs[tn]
+                sym[ch, o: o + len(w)] += w
+    dev = to_device_rate(sym)[:, : frames * 1250 * 96 // 65].cpu().numpy()
+    return bits, np.pad(dev, ((0, 0), (0, 2 * RX_HALO_DEV)))
+
+
+def wire_session(daemon, steps: int, dl_bits: np.ndarray):
+    """Drive a block daemon as a BTS would, over loopback UDP: tune, TSC
+    and slots on every carrier, POWERON last (apps/OpenBTS.cpp:200-214),
+    then two windows of downlink bursts on every slot of every carrier,
+    `steps` blocks and a flush. The uplink datagrams are drained after
+    every step. Returns ({carrier: [datagram bytes]}, clock beacons, q0,
+    the first queued frame)."""
+    from openbts_ttsou_tpu_torch.runtime import UdpTransport
+    from openbts_ttsou_tpu_torch.trx import protocol as proto
+
+    n, base = daemon.cfg.n_arfcn, daemon.cfg.base_port
+    peer = base + daemon.cfg.peer_port_offset
+    clock = UdpTransport(peer, "127.0.0.1", base)
+    ctrl = [UdpTransport(peer + 3 * i + 1, "127.0.0.1", base + 3 * i + 1)
+            for i in range(n)]
+    data = [UdpTransport(peer + 3 * i + 2, "127.0.0.1", base + 3 * i + 2)
+            for i in range(n)]
+    got = {i: [] for i in range(n)}
+
+    def step():
+        daemon.step()
+        for i in range(n):
+            while (d := data[i].recv(256, timeout_ms=0)) is not None:
+                got[i].append(d)
+
+    def cmd(i, verb, *args):
+        ctrl[i].send(proto.pack_command(verb, *args))
+        step()
+        rsp = ctrl[i].recv(128, timeout_ms=2000)
+        check(rsp is not None, f"no response to {verb}")
+        kind, rverb, rargs = proto.parse_message(rsp)
+        check(kind == "RSP" and rverb == verb and rargs[:1] == ["0"],
+              f"{verb}: {rsp!r}")
+
+    try:
+        for i in range(n):
+            cmd(i, "RXTUNE", 890000)
+            cmd(i, "TXTUNE", 935000)
+            cmd(i, "SETTSC", 0)
+            for tn in range(1, 8):
+                cmd(i, "SETSLOT", tn, 1)
+        for i in range(n):
+            cmd(i, "POWERON")
+        check(daemon.on, "daemon not on after POWERON")
+        q0 = daemon.tx_fn
+        for fn in range(q0, q0 + 26):
+            for i in range(n):
+                for tn in range(8):
+                    data[i].send(proto.pack_downlink(proto.DownlinkBurst(
+                        tn, fn, 0, dl_bits)))
+        for _ in range(steps):
+            step()
+        daemon.flush()
+        for i in range(n):
+            while (d := data[i].recv(256, timeout_ms=50)) is not None:
+                got[i].append(d)
+        beacons = []
+        while (d := clock.recv(64, timeout_ms=50)) is not None:
+            beacons.append(d)
+        return got, beacons, q0
+    finally:
+        for s in [clock, *ctrl, *data]:
+            s.close()
+        daemon.close()
+
+
+def phase_daemon() -> dict:
+    """`BlockTrxDaemon` on the card at DAEMON_CHAN carriers, twice through
+    the same wire session on the same replayed uplink: with the compact
+    retire (the default) and with the dense one. The compact run's uplink
+    datagrams must decode to the planted bursts and its tx capture
+    demodulate to the queued bits; both runs must emit the same datagrams
+    and tx blocks, byte for byte. Then the per-frame daemon through its
+    command line (`daemon_entry_point`)."""
+    from openbts_ttsou_tpu_torch.models.transceiver import TX_DELAY_DEV
+    from openbts_ttsou_tpu_torch.ops import cuda_fir
+    from openbts_ttsou_tpu_torch.trx import protocol as proto
+    from openbts_ttsou_tpu_torch.trx.daemon import (BlockTrxDaemon,
+                                                    TrxDaemonConfig)
+    from openbts_ttsou_tpu_torch.trx.radio import ReplayBankRadio
+
+    c, steps = DAEMON_CHAN, 6
+    ul_bits, ul = daemon_uplink(c, 12)
+    dl_bits = norm_burst(99)
+    runs = {}
+    for compact, base in (("compact", DAEMON_PORT),
+                          ("dense", DAEMON_PORT + 100)):
+        radio = ReplayBankRadio(ul, capture_tx_blocks=16)
+        daemon = BlockTrxDaemon(radio, TrxDaemonConfig(
+            base_port=base, peer_port_offset=50, n_arfcn=c, device="cuda"),
+            compact=compact == "compact")
+        cuda_fir.polyphase_resample_cuda.launches = 0
+        t0 = time.perf_counter()
+        got, beacons, q0 = wire_session(daemon, steps, dl_bits)
+        wall = time.perf_counter() - t0
+        runs[compact] = {"daemon": daemon, "radio": radio, "got": got,
+                         "beacons": beacons, "q0": q0, "wall_s": wall,
+                         "launches": cuda_fir.polyphase_resample_cuda.launches}
+    comp, dense = runs["compact"], runs["dense"]
+    d, radio = comp["daemon"], comp["radio"]
+    blocks = d._rx_block
+    check(comp["launches"] == 2 * blocks,
+          f"daemon: K1 launched {comp['launches']} times in {blocks} blocks")
+
+    for i in range(c):
+        bursts = [proto.unpack_uplink(x) for x in comp["got"][i]]
+        check(len(bursts) >= 7 * 13 * 2,
+              f"daemon carrier {i}: {len(bursts)} uplink datagrams")
+        check({u.tn for u in bursts} == set(range(1, 8)),
+              f"daemon carrier {i}: slots {sorted({u.tn for u in bursts})}")
+        for u in bursts:
+            check(np.array_equal((u.soft > 0.5).astype(np.uint8),
+                                 ul_bits[i, u.tn]) and abs(u.toa) <= 256,
+                  f"daemon carrier {i}: burst fn {u.fn} tn {u.tn} wrong")
+    check(bool(comp["beacons"]) and all(
+        proto.parse_message(m)[:2] == ("IND", "CLOCK")
+        for m in comp["beacons"]), "daemon: clock beacons")
+
+    check(radio.tx_log[0][0] == -TX_DELAY_DEV, "daemon: first tx timestamp")
+    start = d.cfg.start_fn + d.cfg.tx_latency_frames
+    qblock = (comp["q0"] - start) // 13
+    check((comp["q0"] - start) % 13 == 0, "daemon: queue not block-aligned")
+    for b in (qblock, qblock + 1):  # the two queued windows
+        tx = torch.from_numpy(radio.tx_log[b][1]).cuda()
+        hard = demod_slot1(tx, d.engine_cfg.tx_full_scale, 13)
+        check(bool((hard == torch.from_numpy(dl_bits).cuda()).all()),
+              f"daemon: tx block {b} does not demodulate to the queued bits")
+
+    check(comp["got"] == dense["got"],
+          "daemon: compact and dense retire sent different datagrams")
+    check(len(radio.tx_log) == len(dense["radio"].tx_log) and all(
+        ta == tb and np.array_equal(xa, xb) for (ta, xa), (tb, xb)
+        in zip(radio.tx_log, dense["radio"].tx_log)),
+        "daemon: compact and dense retire wrote different tx blocks")
+    check(d._filler_tx is not None, "daemon: filler cache never captured")
+    check(d.d2h_bytes < dense["daemon"].d2h_bytes,
+          "daemon: the compact retire fetched no fewer bytes")
+    out = {"phase": "daemon", "carriers": c, "blocks": blocks,
+           "process": daemon_entry_point(),
+           "datagrams": {i: len(comp["got"][i]) for i in range(c)},
+           "tx_blocks": len(radio.tx_log),
+           "launches": {"polyphase_resample": comp["launches"]},
+           "dense_launches": dense["launches"],
+           "d2h_bytes": {"compact": d.d2h_bytes,
+                         "dense": dense["daemon"].d2h_bytes},
+           "session_s": {k: r["wall_s"] for k, r in runs.items()},
+           "device": torch.cuda.get_device_name(0)}
+    record(out)
+    return out
+
+
+def daemon_entry_point() -> dict:
+    """`python -m openbts_ttsou_tpu_torch.trx.daemon` as a BTS meets it:
+    started as its own process (on the card, its default), brought up
+    over its control port, its clock indication read, TSC-0 bursts queued
+    on slot 0 of the 100 frames from the indicated one, and their
+    loopback read back as uplink datagrams (bit errors under 2%, as
+    tests/test_daemon.py holds); then stopped."""
+    from openbts_ttsou_tpu_torch.runtime import UdpTransport
+    from openbts_ttsou_tpu_torch.trx import protocol as proto
+
+    base = DAEMON_PORT + 200
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "openbts_ttsou_tpu_torch.trx.daemon",
+         "--base-port", str(base)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    socks = [UdpTransport(base + 100 + i, "127.0.0.1", base + i)
+             for i in range(3)]
+    clock, ctrl, data = socks
+    t0 = time.perf_counter()
+    try:
+        def cmd(verb, *args, timeout_ms=2000):
+            ctrl.send(proto.pack_command(verb, *args))
+            rsp = ctrl.recv(256, timeout_ms=timeout_ms)
+            if rsp is None:
+                return None
+            kind, rverb, rargs = proto.parse_message(rsp)
+            check(kind == "RSP" and rverb == verb and rargs[:1] == ["0"],
+                  f"daemon process: {verb} answered {rsp!r}")
+            return rsp
+
+        # the process imports torch and reaches the card first
+        while cmd("RXTUNE", 890000, timeout_ms=1000) is None:
+            check(proc.poll() is None and time.perf_counter() - t0 < 120,
+                  "daemon process did not answer RXTUNE")
+        start_s = time.perf_counter() - t0
+        for verb, args in (("TXTUNE", (935000,)), ("SETTSC", (0,)),
+                           ("SETSLOT", (0, 1)), ("POWERON", ())):
+            check(cmd(verb, *args) is not None, f"no response to {verb}")
+        fn0 = None
+        while (m := clock.recv(64, timeout_ms=500)) is not None:
+            kind, verb, args = proto.parse_message(m)
+            check((kind, verb) == ("IND", "CLOCK"), f"clock plane: {m!r}")
+            fn0 = int(args[0])
+        check(fn0 is not None, "daemon process sent no clock indication")
+        bits = norm_burst(7)
+        queued = set(range(fn0, fn0 + 100))
+        for fn in sorted(queued):
+            data.send(proto.pack_downlink(proto.DownlinkBurst(0, fn, 0,
+                                                              bits)))
+        good, seen = 0, 0
+        deadline = time.perf_counter() + 30
+        while good < 10 and time.perf_counter() < deadline:
+            m = data.recv(256, timeout_ms=500)
+            if m is None:
+                check(proc.poll() is None, "daemon process exited")
+                continue
+            u = proto.unpack_uplink(m)
+            if u.tn == 0 and u.fn in queued:
+                seen += 1
+                ber = float(np.mean((u.soft > 0.5).astype(np.uint8) != bits))
+                good += ber < 0.02
+        check(good >= 10, f"daemon process: {good} of {seen} looped-back "
+                          f"bursts decoded")
+        check(proc.poll() is None, "daemon process exited")
+    finally:
+        for s in socks:
+            s.close()
+        proc.terminate()
+        try:
+            out, _ = proc.communicate(timeout=20)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+    log(f"daemon process output:\n{out}")
+    return {"entry_point": "python -m openbts_ttsou_tpu_torch.trx.daemon",
+            "answered_after_s": start_s, "looped_back_bursts": good,
+            "session_s": time.perf_counter() - t0}
+
+
+# ---- phase 8 ---------------------------------------------------------------
+
+def phase_duplex_card_vs_cpu() -> dict:
+    """`duplex_block_compact` on 2 consecutive blocks of the adversarial
+    streams at 4 carriers, on the card and on the CPU, state and tx tail
+    carried: header bytes exact, datagram bytes exact but the soft bytes
+    (±1), DAC samples ±1, state as `check_states`."""
+    from openbts_ttsou_tpu_torch.models import transceiver as T
+    from openbts_ttsou_tpu_torch.ops import fir
+    from openbts_ttsou_tpu_torch.trx.engine import TrxConfig
+
+    c, blocks = 4, 2
+    cfg = TrxConfig(n_chan=c, max_toa=8)
+    spec = T.UplinkSpec(frames=13)
+    f, halo, t_in = spec.frames, T.RX_HALO_DEV, spec.block_in
+    rng = np.random.default_rng(6)
+    sym = np.concatenate(adversarial_streams(rng, c, f, blocks + 1), -1)
+    dev = fir.polyphase_resample(torch.from_numpy(sym), 96, 65,
+                                 fir.resampler_lpf(96, 65, 651))  # CPU
+    ul = np.pad(to_i16(dev[:, : blocks * t_in + halo]).numpy(),
+                ((0, 0), (halo, 0), (0, 0)))
+    lives = (np.ones(c, bool), np.array([True, False, True, True]))
+    devs = ("cuda", "cpu")
+    states = {d: adversarial_state(cfg, d) for d in devs}
+    tails = {d: torch.zeros((c, T.TX_TAIL_SYM), dtype=torch.complex64,
+                            device=d) for d in devs}
+    n_det_all = off = 0
+    for k in range(blocks):
+        bits = rng.integers(0, 2, (f, c, 8, 148)).astype(np.uint8)
+        valid = rng.random((f, c, 8)) < 0.7
+        gain = rng.integers(0, 10, (f, c, 8))
+        buf = T.pack_dl_buffer_live(
+            bits, valid, gain, 1000 + k * f, 1002 + k * f,
+            ul[:, k * t_in: (k + 1) * t_in + 2 * halo], lives[k])
+        res = {}
+        for d in devs:
+            states[d], tails[d], *res[d] = T.duplex_block_compact(
+                cfg, spec, states[d], torch.from_numpy(buf).to(d), tails[d])
+        (hg, tg, pg), (hc, tc, pc) = ([x.cpu().numpy() for x in res[d]]
+                                      for d in devs)
+        check(np.array_equal(hg, hc), f"duplex block {k}: header bytes")
+        n_det, n_live = int(be32(hc[:4])), int(be32(hc[4:]))
+        check(n_live == int(lives[k].sum()) and n_det > 0,
+              f"duplex block {k}: n_det {n_det}, n_live {n_live}")
+        off += close_int(tg[:n_live].view("<i2"), tc[:n_live].view("<i2"),
+                         f"duplex block {k}: DAC samples")
+        check(np.array_equal(pg[:n_det, :8], pc[:n_det, :8])
+              and np.array_equal(pg[:n_det, 156:], pc[:n_det, 156:]),
+              f"duplex block {k}: datagram header bytes")
+        off += close_int(pg[:n_det, 8:156], pc[:n_det, 8:156],
+                         f"duplex block {k}: soft bytes")
+        check_states(states["cuda"], states["cpu"], f"duplex block {k}")
+        a, b = tails["cuda"].cpu(), tails["cpu"]
+        check(float((a - b).abs().max()) <= 2e-4 * float(b.abs().max()),
+              f"duplex block {k}: tx tail")
+        n_det_all += n_det
+    out = {"phase": "duplex_card_vs_cpu", "carriers": c, "blocks": blocks,
+           "detections": n_det_all, "bytes_off_by_1": off,
+           "valid_dfe_slots": int(states["cpu"].chan_valid.sum())}
+    check(out["valid_dfe_slots"] > 0, "duplex card vs CPU: DFE unexercised")
+    record(out)
+    return out
+
+
 def kernels_line(kern: dict, launches: dict) -> dict:
-    """The `kernels` record: K1 at the uplink shape, and every shape's
-    times beside its bound."""
-    up = kern[(65, 96)]
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_share",
-            "gbytes_per_s")
+    """The `kernels` record: K1 at the uplink shape, every shape's times
+    beside its bound, and its launches on each main path (uplink,
+    duplex, daemon), each counted from zero over that path's run."""
+    up = kern[K1_SHAPES[0][0], K1_SHAPES[0][1], K1_SHAPES[0][3]]
+    keys = ("instantiation", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_share", "gbytes_per_s")
+    by_path = {path: n["polyphase_resample"] for path, n in launches.items()}
     return {"kernels": [{
         "name": "polyphase_resample", "route": "cuda",
         "source": "openbts_ttsou_tpu_torch/csrc/polyphase_resample.cu",
         "replaces": "openbts_ttsou_tpu/ops/pallas_fir.py:121",
-        "launches": launches["polyphase_resample"],
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": max(r["max_abs_err"] for r in kern.values()),
         "ms": up["ms"], "plain_ms": up["plain_ms"],
         "bound_ms": up["bound_ms"], "bound_by": up["bound_by"],
@@ -479,8 +1095,13 @@ def main() -> int:
     phase_profile(trx.cfg, trx.spec, trx, x, main_path["ms_per_block"])
     del trx, x
     phase_card_vs_cpu()
+    duplex = phase_duplex()
+    daemon = phase_daemon()
+    phase_duplex_card_vs_cpu()
 
-    print(json.dumps(kernels_line(kern, main_path["launches"])), flush=True)
+    launches = {"uplink": main_path["launches"],
+                "duplex": duplex["launches"], "daemon": daemon["launches"]}
+    print(json.dumps(kernels_line(kern, launches)), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
 """Carry engine state between the JAX package and this port.
 
 The system has no learned parameters: what carries over between the two
-implementations is the engine state (`TrxState`, field for field) and the
-set-up constants, which the port recomputes itself. These helpers move a
-state given as numpy arrays (e.g. `{k: np.asarray(v) for k, v in
-jax_state._asdict().items()}`, or a state file's arrays) onto a device,
-and back.
+implementations is the engine state (`TrxState`, field for field), its
+static `TrxConfig`, and the set-up constants, which the port recomputes
+itself. These helpers move a state given as numpy arrays (e.g. `{k:
+np.asarray(v) for k, v in jax_state._asdict().items()}`, or a state
+file's arrays) onto a device, and back; `trx/state_io.py` uses them to
+read and write the JAX package's state files.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from openbts_ttsou_tpu_torch.trx.engine import TrxState, resolve_device
+from openbts_ttsou_tpu_torch.trx.engine import (TrxConfig, TrxState,
+                                                resolve_device)
 
 #: dtype of every TrxState field
 FIELD_DTYPES = {
@@ -55,3 +57,12 @@ def state_to_numpy(state: TrxState) -> dict[str, np.ndarray]:
     """{field: numpy array} of a TrxState, on the host."""
     return {name: getattr(state, name).detach().cpu().numpy()
             for name in TrxState._fields}
+
+
+def config_from_dict(d: Mapping) -> TrxConfig:
+    """TrxConfig from its `_asdict()` after a JSON round trip, which
+    turns the `rach_slots` tuple into a list."""
+    d = dict(d)
+    if d.get("rach_slots") is not None:
+        d["rach_slots"] = tuple(d["rach_slots"])
+    return TrxConfig(**d)

@@ -158,6 +158,17 @@ def tile_plan(p: int, q: int, lpf_bytes: bytes) -> TilePlan:
                     wb=wb, taps=taps)
 
 
+def instantiation(p: int, q: int, lpf: np.ndarray) -> str:
+    """Which of the kernel's instantiations runs this ratio and filter:
+    "R5U21"-style names for the compile-time ones (`INSTANCES`),
+    "runtime" for the runtime-width one. The plan does not depend on
+    the input length."""
+    plan = tile_plan(p, q, np.ascontiguousarray(lpf, np.float32).tobytes())
+    if any((plan.r, plan.u) == (r, u) for r, u, _ in INSTANCES):
+        return f"R{plan.r}U{plan.u}"
+    return "runtime"
+
+
 @functools.lru_cache(maxsize=None)
 def _device_plan(p: int, q: int, lpf_bytes: bytes, device: torch.device):
     plan = tile_plan(p, q, lpf_bytes)

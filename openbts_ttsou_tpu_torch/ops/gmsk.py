@@ -1,4 +1,4 @@
-"""GMSK modulation constants and demodulation.
+"""GMSK modulation and demodulation.
 
 Port of `openbts_ttsou_tpu/ops/gmsk.py`. Reference behavior:
 `Transceiver/sigProcLib.cpp:411-430` (generateGSMPulse), `:214-264`
@@ -32,6 +32,41 @@ def rotation(n: int, sps: int) -> np.ndarray:
     """exp(+j·(π/2)·k/sps), k=0..n-1 (sigProcLib.cpp:214-225). complex64."""
     phase = (np.pi / 2.0 / sps) * np.arange(n)
     return np.exp(1j * phase).astype(np.complex64)
+
+
+def _rotation_t(n: int, sps: int, device) -> torch.Tensor:
+    return torch.from_numpy(rotation(n, sps)).to(device)
+
+
+def gmsk_rotate(x: torch.Tensor, sps: int) -> torch.Tensor:
+    """π/2-per-symbol phase ramp (GMSKRotate, sigProcLib.cpp:232-247)."""
+    return x * _rotation_t(x.shape[-1], sps, x.device)
+
+
+def gmsk_reverse_rotate(x: torch.Tensor, sps: int) -> torch.Tensor:
+    """Conjugate ramp (GMSKReverseRotate, sigProcLib.cpp:249-264)."""
+    return x * torch.conj_physical(_rotation_t(x.shape[-1], sps, x.device))
+
+
+def modulate_burst(bits: torch.Tensor, sps: int, guard_len: int = 0,
+                   pulse: torch.Tensor | None = None) -> torch.Tensor:
+    """bits [..., N] {0,1} → GMSK baseband [..., sps·(N+guard_len)]
+    complex64 (modulateBurst, sigProcLib.cpp:521-565): ±1 impulses at sps
+    spacing → π/2-per-symbol rotation → pulse shaping, NO_DELAY span.
+
+    The pulse is real, so `fir.convolve` multiplies each complex window
+    by real taps: the real and imaginary planes are filtered separately
+    in float32 (unfold-and-sum, no TF32 path)."""
+    n = bits.shape[-1]
+    total = sps * (n + guard_len)
+    x = torch.zeros(bits.shape[:-1] + (total,), dtype=torch.float32,
+                    device=bits.device)
+    x[..., : n * sps: sps] = 2.0 * bits.to(torch.float32) - 1.0
+    rot = gmsk_rotate(x.to(torch.complex64), sps)
+    if pulse is None:
+        pulse = torch.from_numpy(gsm_pulse(sps))
+    return fir.convolve(rot, pulse.to(device=bits.device,
+                                      dtype=torch.float32), fir.NO_DELAY)
 
 
 def modulate_burst_np(bits: np.ndarray, sps: int,
@@ -106,6 +141,5 @@ def demodulate_burst(x: torch.Tensor, sps: int, channel: torch.Tensor,
     (sigProcLib.cpp:1056-1097). x [..., T] → [..., T//sps] float32."""
     y = x / channel.to(torch.complex64)[..., None]
     y = delay_vector(y, -toa.to(torch.float32))
-    rot = torch.from_numpy(rotation(y.shape[-1], sps)).to(y.device)
-    y = y * torch.conj_physical(rot)
+    y = gmsk_reverse_rotate(y, sps)
     return vector_slicer(decimate(y, sps))

@@ -1,5 +1,6 @@
-"""Batched GSM layer-0 engine, receive half: burst clock, detection
-dispatch, demodulation, adaptive threshold, channel/DFE state.
+"""Batched GSM layer-0 engine: burst clock, detection dispatch,
+demodulation, adaptive threshold, channel/DFE state, and the transmit
+modulator with its filler table.
 
 Port of `openbts_ttsou_tpu/trx/engine.py`. Reference behavior:
 `Transceiver52M/Transceiver.{h,cpp}` — `expectedCorrType`
@@ -8,7 +9,8 @@ path), adaptive energy threshold (:91,294-303,336-375), per-timeslot
 channel state and 50-frame DFE re-estimation (:311-348), RSSI/TOA
 reporting (:396-399).
 
-One `rx_step` processes a whole GSM frame for every carrier at once:
+One `rx_step` (`tx_step`) receives (transmits) a whole GSM frame for
+every carrier at once:
 `[chan, slot, samples]` flattened to `[chan·slot]` bursts. All state is
 an explicit `TrxState` NamedTuple of tensors on one device.
 """
@@ -24,7 +26,9 @@ from openbts_ttsou_tpu_torch.ops import correlate as xcorr
 from openbts_ttsou_tpu_torch.ops import dfe as dfe_mod
 from openbts_ttsou_tpu_torch.ops import gmsk
 from openbts_ttsou_tpu_torch.utils import constants as C
-from openbts_ttsou_tpu_torch.utils.gsm_time import HYPERFRAME, fn_delta
+from openbts_ttsou_tpu_torch.utils.gsm_time import (HYPERFRAME,
+                                                    SLOT_SAMPLE_PATTERN,
+                                                    fn_delta)
 
 SLOT_SAMPLES = 157  # uniform per-slot sample window (1 sps), masked per TN
 CHAN_TAPS = 6  # channel estimate length in symbols (sigProcLib.cpp:1009)
@@ -387,3 +391,47 @@ def rx_step(cfg: TrxConfig, state: TrxState, frame: torch.Tensor
         timing=timing.reshape(c, 8),
     )
     return new_state, res
+
+
+def tx_step(cfg: TrxConfig, state: TrxState, bits: torch.Tensor,
+            valid: torch.Tensor, atten_db: torch.Tensor, fn=None
+            ) -> torch.Tensor:
+    """Modulate one downlink frame for all channels.
+
+    bits: [C, 8, 148] uint8; valid: [C, 8] bool (filler-table fallback
+    where False, Transceiver.cpp:165-175); atten_db: [C, 8] float32
+    relative attenuation (addRadioVector scale, cpp:111); fn is unused
+    (the reference's tx walk reads no frame-dependent state). Returns
+    [C, 8, SLOT_SAMPLES·sps] slot windows, zero past each slot's
+    157/156 length."""
+    del fn
+    return tx_frames(cfg, state, bits[None], valid[None], atten_db[None])[0]
+
+
+def tx_frames(cfg: TrxConfig, state: TrxState, bits: torch.Tensor,
+              valid: torch.Tensor, atten_db: torch.Tensor) -> torch.Tensor:
+    """Modulate a whole window of downlink frames in one batch:
+    bits [F, C, 8, 148], valid/atten_db [F, C, 8] →
+    [F, C, 8, SLOT_SAMPLES·sps]. tx_step reads only block-constant state
+    (filler table, full scale), so the reference's frame-at-a-time
+    driveTransmitFIFO walk (Transceiver.cpp:672-722) is one F·C·8-burst
+    modulation."""
+    f, c, sps = bits.shape[0], cfg.n_chan, cfg.sps
+    t = SLOT_SAMPLES * sps
+    dev = bits.device
+    flat = bits.reshape(f * c * 8, bits.shape[-1])
+    mod = gmsk.modulate_burst(flat, sps, guard_len=9)  # [F·C·8, 157·sps]
+    scale = cfg.tx_full_scale * 10.0 ** (
+        -atten_db.reshape(-1).to(torch.float32) / 10.0)
+    mod = mod * scale.to(torch.float32)[:, None]
+    # zero the samples past the true slot length (157/156/156/156)
+    slot_len = torch.tensor(SLOT_SAMPLE_PATTERN, dtype=torch.int64,
+                            device=dev) * sps
+    mask = (torch.arange(t, device=dev)[None, :]
+            < slot_len.repeat(f * c)[:, None])
+    mod = torch.where(mask, mod[:, :t], torch.zeros((), dtype=mod.dtype,
+                                                     device=dev))
+    fill = state.filler.reshape(1, c * 8, t).expand(f, c * 8, t
+                                                    ).reshape(f * c * 8, t)
+    out = torch.where(valid.reshape(-1)[:, None], mod, fill)
+    return out.reshape(f, c, 8, t)

@@ -9,15 +9,23 @@ import numpy as np
 import pytest
 import torch
 
+from openbts_ttsou_tpu_torch.models import transceiver as T
 from openbts_ttsou_tpu_torch.ops import cuda_fir
 from openbts_ttsou_tpu_torch.ops import fir
+from openbts_ttsou_tpu_torch.ops import gmsk
+from openbts_ttsou_tpu_torch.trx import engine as eng
+from openbts_ttsou_tpu_torch.utils import constants as C
 
-# (p, q, taps, T, leading shape): the two shapes the system runs (the
-# templated instantiations), the small ratios of the runtime-width and
-# tail-group paths, one row, more tiles than the persistent grid holds
-# (600 rows of one tile), odd T, k_max 25 (the runtime instantiation
-# at the uplink ratio), and the largest q at p = 3 (one cycle a tile)
+# (p, q, taps, T, leading shape): the two ratios the system runs (the
+# templated instantiations) at the uplink's lengths and at the duplex
+# block's (the uplink window with its two 96-sample halos, the downlink
+# stream with its 130-symbol tail), the small ratios of the
+# runtime-width and tail-group paths, one row, more tiles than the
+# persistent grid holds (600 rows of one tile), odd T, k_max 25 (the
+# runtime instantiation at the uplink ratio), and the largest q at p = 3
+# (one cycle a tile)
 GEOMETRIES = [(65, 96, 961, 24000, (3, 2)), (96, 65, 651, 16250, (3, 2)),
+              (65, 96, 961, 24192, (3,)), (96, 65, 651, 16380, (3,)),
               (3, 200, 31, 1000, (3, 2)), (7, 2, 50, 300, (3, 2)),
               (65, 96, 961, 24000, (1,)), (65, 96, 961, 2000, (600,)),
               (96, 65, 651, 16251, (5,)), (7, 2, 50, 301, (4,)),
@@ -98,3 +106,100 @@ def test_resample_kernel_takes_unaligned_rows(card):
     got, want = got.cpu().numpy(), want.cpu().numpy()
     np.testing.assert_allclose(got, want, rtol=2e-4,
                                atol=2e-4 * np.abs(want).max())
+
+
+def _duplex_inputs(c, rng):
+    """One duplex block's io buffer: TSC-2 bursts on slots 1-7 at delays
+    of 0-2 symbols and RACH bursts on slot 0 of some frames, in noise, at
+    the device rate with the two halos, as int16; a random downlink with
+    filler slots, attenuations 0-9 dB and one carrier not live."""
+    spec = T.UplinkSpec()
+    f, halo = spec.frames, T.RX_HALO_DEV
+    offs = np.concatenate([[0], np.cumsum([157, 156, 156, 156] * 2)])[:8]
+    sym = (rng.standard_normal((c, (f + 1) * 1250, 2)) * 20.0
+           ).astype(np.float32).view(np.complex64)[..., 0]
+    for fr in range(f + 1):
+        for ch in range(c):
+            for tn in range(8):
+                bits = rng.integers(0, 2, 148).astype(np.uint8)
+                if tn == 0:
+                    if fr % 4 != 1:
+                        continue
+                    bits[:8] = [0, 1, 0, 1, 0, 1, 0, 1]
+                    bits[8:49] = C.RACH_SYNCH_SEQUENCE
+                    bits[49:85] = rng.integers(0, 2, 36)
+                else:
+                    bits[61:87] = C.TRAINING_SEQUENCE[2]
+                w = 9000.0 * gmsk.modulate_burst_np(bits[None], 1, 9)[0]
+                s = fr * 1250 + offs[tn] + int(rng.integers(0, 3))
+                e = min(s + len(w), sym.shape[1])
+                sym[ch, s:e] += w[: e - s]
+    dev = fir.polyphase_resample(torch.from_numpy(sym), 96, 65,
+                                 fir.resampler_lpf(96, 65, 651)).numpy()
+    dev = np.pad(dev[:, : spec.block_in + halo], ((0, 0), (halo, 0)))
+    ul = np.clip(np.stack([dev.real, dev.imag], -1).round(), -32767,
+                 32767).astype(np.int16)
+    live = np.ones(c, bool)
+    live[-1] = False
+    return T.pack_dl_buffer_live(
+        rng.integers(0, 2, (f, c, 8, 148)).astype(np.uint8),
+        rng.random((f, c, 8)) < 0.7, rng.integers(0, 10, (f, c, 8)),
+        500, 502, ul, live)
+
+
+def _close_int(a, b):
+    """Within ±1, at most 0.1% off by 1 (float32 sums in another order)."""
+    d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+    assert d.max(initial=0) <= 1 and (d > 0).sum() <= 1e-3 * d.size
+
+
+@pytest.mark.cuda
+def test_duplex_block_compact_card_matches_cpu(card):
+    """One duplex block on the card (K1 at [C, 24192] 65/96 and [C, 16380]
+    96/65) and on the CPU from one entry state: header bytes, detections'
+    datagram headers and the integer state exact; soft bytes and DAC
+    samples within ±1 (at most 0.1% off); float state within the uplink
+    suite's bound (atol 2e-4, rtol 5e-6)."""
+    c = 3
+    cfg = eng.TrxConfig(n_chan=c, max_toa=8)
+    spec = T.UplinkSpec()
+    buf = _duplex_inputs(c, np.random.default_rng(12))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        st = eng.init_state(cfg, dev)._replace(
+            chan_type=torch.tensor(
+                [[eng.ChanType.IV] + [eng.ChanType.I] * 7] * c,
+                dtype=torch.int32, device=dev),
+            tsc=torch.full((c,), 2, dtype=torch.int32, device=dev),
+            max_expected_delay=torch.tensor([0, 2, 4], dtype=torch.int32,
+                                            device=dev))
+        tail = torch.zeros((c, T.TX_TAIL_SYM), dtype=torch.complex64,
+                           device=dev)
+        n0 = cuda_fir.polyphase_resample_cuda.launches
+        outs[dev] = T.duplex_block_compact(cfg, spec, st,
+                                           torch.from_numpy(buf).to(dev),
+                                           tail)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert cuda_fir.polyphase_resample_cuda.launches == n0 + 2
+    (sg, tg, hg, txg, pg), (sc, tc, hc, txc, pc) = outs["cuda"], outs["cpu"]
+    hg, hc = hg.cpu().numpy(), hc.cpu().numpy()
+    np.testing.assert_array_equal(hg, hc)
+    n_det = int.from_bytes(hc[:4].tobytes(), "big")
+    n_live = int.from_bytes(hc[4:].tobytes(), "big")
+    assert n_live == c - 1 and n_det > 0
+    _close_int(txg[:n_live].cpu().numpy().view("<i2"),
+               txc[:n_live].numpy().view("<i2"))
+    pg, pc = pg[:n_det].cpu().numpy(), pc[:n_det].numpy()
+    np.testing.assert_array_equal(pg[:, :8], pc[:, :8])
+    np.testing.assert_array_equal(pg[:, 156:], pc[:, 156:])
+    _close_int(pg[:, 8:156], pc[:, 8:156])
+    for name in sc._fields:
+        a, b = getattr(sg, name).cpu().numpy(), getattr(sc, name).numpy()
+        if a.dtype == bool or np.issubdtype(a.dtype, np.integer):
+            np.testing.assert_array_equal(a, b, err_msg=name)
+        else:
+            np.testing.assert_allclose(a, b, atol=2e-4, rtol=5e-6,
+                                       err_msg=name)
+    np.testing.assert_allclose(tg.cpu().numpy(), tc.numpy(),
+                               atol=2e-4 * float(tc.abs().max()))
