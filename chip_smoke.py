@@ -41,7 +41,23 @@ prints no result):
    dense retire; then `python -m openbts_ttsou_tpu_torch.trx.daemon` as
    its own process, brought up and looped back over UDP, and stopped;
 8. card against CPU, duplex: `duplex_block_compact` on 2 blocks of the
-   adversarial streams at 4 carriers, on the card and on the CPU.
+   adversarial streams at 4 carriers, on the card and on the CPU;
+9. resident: `ResidentL1` (the resident layer 1, FEC both ways) at 512
+   carriers with the bench split, two passes of 5 windows: random
+   speech, FACCH and L2 frames transmitted with a silent uplink, then
+   that stream looped back; every frame sent decoded exactly once,
+   bit-exact; K1 twice a window; one window profiled, the decode leg
+   profiled and its Viterbi calls timed, both FEC legs run under
+   sync-debug "error", a window timed in turns with the FEC-less duplex
+   block;
+10. uplink decoded: `uplink_block_decoded_stream` at 512 carriers on the
+    same stream, decoding what phase 9 decoded, window by window;
+11. resident card against CPU at 4 carriers (content and noise): every
+    DecodedBlocks field exact, DAC samples ±1, and a carry taken on the
+    card restored on the CPU through `convert.py`;
+12. USRP bus: `BlockTrxDaemon` on the card over USRPBankRadio →
+    SocketBus → a `python -m openbts_ttsou_tpu_torch.trx.bus_server`
+    process at 2 carriers with planted bursts.
 
 Earlier lines are JSON records; the line before the last is the card's
 name and power limit; the last line is the result object.
@@ -49,11 +65,13 @@ name and power limit; the last line is the result object.
 
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -70,6 +88,7 @@ K1_SHAPES = ((65, 96, 961, 24000), (96, 65, 651, 16250),
              (65, 96, 961, 24192), (96, 65, 651, 16380))
 DAEMON_CHAN = 4  # carriers of the wire daemon (each binds 2 UDP ports)
 DAEMON_PORT = 52000  # its base port; the BTS side listens 50 above
+ROOT = Path(__file__).resolve().parent
 
 
 def log(msg: str) -> None:
@@ -1058,6 +1077,513 @@ def phase_duplex_card_vs_cpu() -> dict:
     return out
 
 
+# ---- phases 9-12: the resident layer 1 ------------------------------------
+
+#: the bench's duplex_decoded slot split (bench.py:290,326): TCH/F on
+#: slots 2-5, XCCH on 0, 1, 6 and 7
+XCCH_TNS, TCH_TNS = (0, 1, 6, 7), (2, 3, 4, 5)
+RES_WINDOWS = 5  # 4 windows of content, then one that flushes the carries
+BUS_PORT = DAEMON_PORT + 300  # the USRP bus phase's daemon
+
+
+def first_tch_start() -> int:
+    """The first FN ≡ 0 mod 4 at which the TCH/F multiframe starts a
+    diagonal: 13-frame windows from there meet all four FN%4 phases."""
+    from openbts_ttsou_tpu_torch.gsm.tdma import FACCH_TCHF
+
+    fn = int(np.where(FACCH_TCHF.reverse_map() == 0)[0][0])
+    while fn % 4:
+        fn += 26
+    return fn
+
+
+def resident_contents(c: int, fn0: int, windows: int, seed: int):
+    """Downlink content of `windows` windows for c carriers, all but the
+    last full: on every TCH slot, speech or (3 in 10) FACCH on each
+    dispatch the window sends; on every XCCH slot, an L2 frame at every
+    group start inside the window. Returns (contents, sent) with sent a
+    Counter of (kind, carrier, slot, packed bits)."""
+    from openbts_ttsou_tpu_torch.gsm import l1fec
+
+    rng = np.random.default_rng(seed)
+    nd = l1fec._tch_tx_tables(13)[2]  # dispatches a window sends, by phase
+    tt, xt = list(TCH_TNS), list(XCCH_TNS)
+    contents, sent = [], collections.Counter()
+    for w in range(windows):
+        fnw = fn0 + 13 * w
+        x = np.zeros((4, c, 8, 184), np.uint8)
+        xv = np.zeros((4, c, 8), bool)
+        sp = np.zeros((3, c, 8, 260), np.uint8)
+        spv = np.zeros((3, c, 8), bool)
+        fa = np.zeros((3, c, 8, 184), np.uint8)
+        fav = np.zeros((3, c, 8), bool)
+        tch_mask = np.zeros((c, 8), bool)
+        tch_mask[:, tt] = True
+        if w < windows - 1:
+            n = int(nd[fnw % 26])
+            use_f = rng.random((n, c, len(tt))) < 0.3
+            fa[:n, :, tt] = rng.integers(0, 2, (n, c, len(tt), 184))
+            fav[:n, :, tt] = use_f
+            sp[:n, :, tt] = rng.integers(0, 2, (n, c, len(tt), 260))
+            spv[:n, :, tt] = ~use_f
+            off = (-fnw) % 4
+            ng = len([s for s in range(off, 13, 4)])  # starts inside
+            x[:ng, :, xt] = rng.integers(0, 2, (ng, c, len(xt), 184))
+            xv[:ng, :, xt] = True
+        for kind, bits, valid in (("s", sp, spv), ("f", fa, fav),
+                                  ("x", x, xv)):
+            sent.update(frame_keys(kind, bits, valid))
+        contents.append((x, xv, sp, spv, fa, fav, tch_mask))
+    return contents, sent
+
+
+def frame_keys(kind: str, bits: np.ndarray, mask: np.ndarray) -> list:
+    """(kind, carrier, slot, packed bits) of every frame bits[g, c, tn]
+    where mask[g, c, tn]."""
+    g, ch, tn = np.nonzero(mask)
+    packed = np.packbits(bits[g, ch, tn], axis=-1)
+    return [(kind, int(a), int(b), p.tobytes())
+            for a, b, p in zip(ch, tn, packed)]
+
+
+def decoded_keys(blocks) -> collections.Counter:
+    """The frames one window's DecodedBlocks reports decoded (speech where
+    tch_good, FACCH where facch_ok, XCCH where ok)."""
+    b = {k: v.cpu().numpy() for k, v in blocks._asdict().items()}
+    out = collections.Counter()
+    for kind, bits, mask in (("s", b["tch_speech"], b["tch_good"]),
+                             ("f", b["facch_bits"], b["facch_ok"]),
+                             ("x", b["bits"], b["ok"])):
+        out.update(frame_keys(kind, bits, mask))
+    return out
+
+
+def new_resident(c: int, fn0: int, device):
+    """ResidentL1 on c carriers with the bench split, combination I on
+    every slot (all carry content)."""
+    from openbts_ttsou_tpu_torch.models import ResidentL1
+    from openbts_ttsou_tpu_torch.trx.engine import ChanType, TrxConfig
+
+    r = ResidentL1(TrxConfig(n_chan=c), xcch_tns=XCCH_TNS, tch_tns=TCH_TNS,
+                   fn0=fn0, device=device)
+    r.state = r.state._replace(chan_type=torch.full(
+        (c, 8), ChanType.I, dtype=torch.int32, device=device))
+    return r
+
+
+def to_device(content, device) -> tuple:
+    return tuple(torch.from_numpy(a).to(device) for a in content)
+
+
+def air_windows(txs: list, full_scale: float, extra=None) -> list:
+    """The uplink windows of a looped-back downlink: the tx blocks at
+    amplitude 9000 (plus `extra`, e.g. noise, of the same shape) as one
+    stream, cut into windows with their two RX_HALO_DEV halos. The tx
+    starts TX_DELAY_DEV early and TX_DELAY_DEV == RX_HALO_DEV, so the
+    plain concatenation is the halo'd stream."""
+    from openbts_ttsou_tpu_torch.models.transceiver import RX_HALO_DEV
+
+    c, b = txs[0].shape[0], txs[0].shape[1]
+    air = torch.cat([t / full_scale * 9000.0 for t in txs]
+                    + [torch.zeros((c, 2 * RX_HALO_DEV), dtype=txs[0].dtype,
+                                   device=txs[0].device)], -1)
+    if extra is not None:
+        air = air + extra
+    return [air[:, w * b: (w + 1) * b + 2 * RX_HALO_DEV].contiguous()
+            for w in range(len(txs))]
+
+
+def viterbi_census(fn) -> list:
+    """fn() with every `fec.viterbi_decode` call timed alone (the card
+    synchronised around it): [{rows, steps, ms}] in call order."""
+    from openbts_ttsou_tpu_torch.gsm import fec
+
+    orig, calls = fec.viterbi_decode, []
+
+    def timed(soft):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(soft)
+        torch.cuda.synchronize()
+        calls.append({"rows": soft.numel() // soft.shape[-1],
+                      "steps": soft.shape[-1] // 2 + fec.V_DEFERRAL,
+                      "ms": (time.perf_counter() - t0) * 1e3})
+        return out
+
+    fec.viterbi_decode = timed
+    try:
+        fn()
+    finally:
+        fec.viterbi_decode = orig
+    return calls
+
+
+def phase_resident() -> dict:
+    """`ResidentL1` at 512 carriers with the bench split, two passes of
+    RES_WINDOWS windows from an FN where all four FN%4 phases occur.
+    Pass 1 transmits random speech, FACCH and L2 frames on every carrier
+    with a silent uplink; pass 2 takes pass 1's stream back as its
+    uplink. Known answer: every frame sent is decoded exactly once,
+    bit-exact, with its flag, and nothing else is. Pass 2 is timed
+    window by window, K1 counted over it; then one window profiled, the
+    decode leg alone profiled, its Viterbi calls timed, decode_block and
+    _encode_dl_window run under sync-debug mode "error", and a window
+    timed in turns with duplex_block_wire on the same uplink and bursts
+    (the FEC legs' cost)."""
+    from openbts_ttsou_tpu_torch.models import transceiver as T
+    from openbts_ttsou_tpu_torch.ops import cuda_fir, fir
+    from openbts_ttsou_tpu_torch.parallel.halo import resample_block
+
+    c, fn0 = N_CHAN, first_tch_start()
+    contents, sent = resident_contents(c, fn0, RES_WINDOWS, seed=40)
+    dl = [to_device(x, "cuda") for x in contents]
+    spec = T.UplinkSpec()
+    silent = torch.zeros((c, spec.block_in + 2 * T.RX_HALO_DEV),
+                         dtype=torch.complex64, device="cuda")
+    r = new_resident(c, fn0, "cuda")
+    check({(fn0 + 13 * w) % 4 for w in range(RES_WINDOWS)} == {0, 1, 2, 3},
+          "resident: the windows miss an FN%4 phase")
+    t0 = time.perf_counter()
+    txs = [r.step(silent, d)[0] for d in dl]
+    torch.cuda.synchronize()
+    pass1_ms = (time.perf_counter() - t0) / RES_WINDOWS * 1e3
+    uls = air_windows(txs, r.cfg.tx_full_scale)
+    del txs
+
+    r = new_resident(c, fn0, "cuda")
+    cuda_fir.polyphase_resample_cuda.launches = 0
+    blocks, ms = [], []
+    for w in range(RES_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blocks.append(r.step(uls[w], dl[w])[1])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {"polyphase_resample":
+                cuda_fir.polyphase_resample_cuda.launches}
+    check(launches["polyphase_resample"] == 2 * RES_WINDOWS,
+          f"resident: K1 launched {launches['polyphase_resample']} times in "
+          f"{RES_WINDOWS} windows, expected 2 a window")
+    got = collections.Counter()
+    for b in blocks:
+        got.update(decoded_keys(b))
+    kinds = {k: sum(n for key, n in sent.items() if key[0] == k)
+             for k in "sfx"}
+    check(max(got.values()) == 1, "resident: a frame decoded twice")
+    check(got == sent, f"resident: {len(sent - got)} frames sent and not "
+          f"decoded, {len(got - sent)} decoded and not sent (of "
+          f"{sum(sent.values())})")
+
+    # one more window, profiled, and its decode leg alone; the carry is
+    # put back after each
+    snap = r.carry()
+    flush = dl[-1]
+    prof = device_profile(lambda: r.step(uls[-1], flush),
+                          statistics.median(ms))
+    r.restore(snap)
+    census = viterbi_census(lambda: r.step(uls[-1], flush))
+    r.restore(snap)
+    st = r.state._replace(fn=torch.full((), r.fn, dtype=torch.int32,
+                                        device="cuda"))
+    sym = resample_block(uls[-1], spec.p, spec.q,
+                         fir.resampler_lpf(spec.p, spec.q, spec.taps),
+                         T.RX_HALO_DEV, spec.block_in)
+    _, res = T._exact_rx(r.cfg, spec.frames, st,
+                         sym[..., : spec.block_symbols])
+
+    def decode():
+        return T.decode_block(res, st.fn, spec.frames, 0,
+                              prev_soft=r.prev_soft,
+                              prev_valid=r.prev_valid, xcch_tns=XCCH_TNS,
+                              tch_tns=TCH_TNS, rach_tns=r.cfg.rach_slots)
+
+    def encode():
+        return T._encode_dl_window(
+            r.cfg, spec, st, *flush, r.tx_carry[0], st.fn,
+            xcch_phase=r.fn % 4, xcch_carry=r.tx_carry[1],
+            xcch_tns=XCCH_TNS, tch_tns=TCH_TNS)
+
+    decode()
+    encode()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode()
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    decode_prof = device_profile(decode, decode_ms)
+    # neither FEC leg may wait for the card
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        decode()
+        encode()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # what the FEC legs add, in turns from one carry on one window: the
+    # resident step against duplex_block_wire on the same uplink and the
+    # bursts the encode leg makes (the host's speed drifts within a call)
+    bits, valid, _, _ = encode()
+    atten = torch.zeros(valid.shape, device="cuda")
+    turns = {"resident_step": [], "duplex_block_wire": []}
+    for _ in range(3):
+        r.restore(snap)
+        for name, fn in (("resident_step", lambda: r.step(uls[-1], flush)),
+                         ("duplex_block_wire", lambda: T.duplex_block_wire(
+                             r.cfg, spec, st, uls[-1], snap["tx_tail"],
+                             bits, valid, atten))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            turns[name].append((time.perf_counter() - t0) * 1e3)
+    r.restore(snap)
+    out = {"phase": "resident", "carriers": c, "windows": RES_WINDOWS,
+           "split": {"xcch_tns": XCCH_TNS, "tch_tns": TCH_TNS},
+           "fn0": fn0, "frames_sent": kinds,
+           "frames_decoded": sum(got.values()),
+           "pass1_ms_per_window": pass1_ms, "pass2_ms": ms,
+           "pass2_ms_per_window": statistics.median(ms),
+           "launches": launches,
+           "launches_per_window": {k: v / RES_WINDOWS
+                                   for k, v in launches.items()},
+           "profile": prof,
+           "in_turns_ms": turns,
+           "decode_leg": {"ms": decode_ms, "profile": decode_prof},
+           "viterbi": {"calls": census,
+                       "steps": sum(x["steps"] for x in census),
+                       "ms": sum(x["ms"] for x in census)},
+           "sync_debug_error_passed": ["decode_block", "_encode_dl_window"],
+           "device": torch.cuda.get_device_name(0)}
+    record(out)
+    return out, uls, blocks
+
+
+def blocks_match(a, b, what: str) -> None:
+    """Two DecodedBlocks report the same decodes: equal flags, and equal
+    payloads wherever a flag is set (garbage of failed groups reads the
+    soft bits at the window's edges, which a window without halos
+    resamples differently)."""
+    for name in ("ok", "tch_good", "facch_ok", "tch_valid", "first_fn",
+                 "tch_end_fn"):
+        check(torch.equal(getattr(a, name), getattr(b, name)),
+              f"{what}: {name} differs")
+    check(decoded_keys(a) == decoded_keys(b), f"{what}: decoded frames")
+
+
+def phase_uplink_decoded(uls: list, blocks: list) -> dict:
+    """`uplink_block_decoded_stream` at 512 carriers on the resident
+    phase's uplink windows (without their halos), its prelude carried:
+    each window decodes what the resident phase's pass 2 did."""
+    from openbts_ttsou_tpu_torch.models import transceiver as T
+    from openbts_ttsou_tpu_torch.ops import cuda_fir
+
+    c, fn0 = N_CHAN, first_tch_start()
+    spec = T.UplinkSpec()
+    r = new_resident(c, fn0, "cuda")
+    st, cfg = r.state, r.cfg
+    prev, pv = r.prev_soft, r.prev_valid
+    h = T.RX_HALO_DEV
+    cuda_fir.polyphase_resample_cuda.launches = 0
+    ms = []
+    for w, ul in enumerate(uls):
+        x = ul[:, h: h + spec.block_in].contiguous()
+        st = st._replace(fn=torch.full((), fn0 + 13 * w, dtype=torch.int32,
+                                       device="cuda"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _, got, prev, pv = T.uplink_block_decoded_stream(
+            cfg, spec, st, x, 0, prev, pv, XCCH_TNS, TCH_TNS)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        blocks_match(got, blocks[w], f"uplink decoded window {w}")
+    launches = {"polyphase_resample":
+                cuda_fir.polyphase_resample_cuda.launches}
+    check(launches["polyphase_resample"] == len(uls),
+          f"uplink decoded: K1 launched {launches} in {len(uls)} windows")
+    out = {"phase": "uplink_decoded", "carriers": c, "windows": len(uls),
+           "ms": ms, "ms_per_window": statistics.median(ms),
+           "launches": launches}
+    record(out)
+    return out
+
+
+def phase_resident_card_vs_cpu() -> dict:
+    """ResidentL1 at 4 carriers on the card and on the CPU over 4 windows
+    of content with noise σ 40 on the looped-back uplink: DecodedBlocks
+    exact, tx as int16 DAC samples within ±1 (at most 0.1% off). A carry
+    taken on the card after window 2 and restored on the CPU through
+    convert.py continues as the card does."""
+    from openbts_ttsou_tpu_torch import convert
+    from openbts_ttsou_tpu_torch.models import transceiver as T
+
+    c, n_win, fn0 = 4, 4, first_tch_start() + 26
+    contents, sent = resident_contents(c, fn0, n_win, seed=41)
+    spec = T.UplinkSpec()
+    silent = torch.zeros((c, spec.block_in + 2 * T.RX_HALO_DEV),
+                         dtype=torch.complex64, device="cuda")
+    r = new_resident(c, fn0, "cuda")
+    txs = [r.step(silent, to_device(x, "cuda"))[0] for x in contents]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n_air = n_win * spec.block_in + 2 * T.RX_HALO_DEV
+    noise = torch.randn((c, n_air), dtype=torch.complex64, device="cuda",
+                        generator=gen) * 40.0
+    uls = air_windows(txs, r.cfg.tx_full_scale, noise)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        r = new_resident(c, fn0, dev)
+        outs = []
+        for w in range(n_win):
+            tx, b = r.step(uls[w].to(dev), to_device(contents[w], dev))
+            outs.append((tx.cpu(), type(b)(*(v.cpu() for v in b))))
+            if dev == "cuda" and w == 2:
+                snap = convert.resident_carry_to_numpy(r.carry())
+        runs[dev] = outs
+    off, got = 0, collections.Counter()
+    for w in range(n_win):
+        (tg, bg), (tc, bc) = runs["cuda"][w], runs["cpu"][w]
+        for k in bg._fields:
+            check(torch.equal(getattr(bg, k), getattr(bc, k)),
+                  f"resident card vs CPU window {w}: {k} differs")
+        off += close_int(to_i16(tg).numpy(), to_i16(tc).numpy(),
+                         f"resident card vs CPU window {w}: DAC samples")
+        got.update(decoded_keys(bg))
+    check(got == sent, f"resident card vs CPU: {len(sent - got)} frames "
+          f"lost, {len(got - sent)} extra, of {sum(sent.values())}")
+    cpu = new_resident(c, 0, "cpu")
+    cpu.restore(convert.resident_carry_from_numpy(snap, "cpu"))
+    check(cpu.fn == fn0 + 13 * 3, "resident carry: fn")
+    tx, b = cpu.step(uls[3].cpu(), to_device(contents[3], "cpu"))
+    for k in b._fields:
+        check(torch.equal(getattr(b, k), getattr(runs["cuda"][3][1], k)),
+              f"resident carry card → CPU: {k} differs")
+    off += close_int(to_i16(tx).numpy(), to_i16(runs["cuda"][3][0]).numpy(),
+                     "resident carry card → CPU: DAC samples")
+    out = {"phase": "resident_card_vs_cpu", "carriers": c, "windows": n_win,
+           "frames_sent_and_decoded": sum(sent.values()),
+           "dac_samples_off_by_1": off, "carry_restored_after_window": 2}
+    record(out)
+    return out
+
+
+def phase_usrp_bus() -> dict:
+    """The port's BlockTrxDaemon on the card over USRPBankRadio →
+    SocketBus → a `python -m openbts_ttsou_tpu_torch.trx.bus_server`
+    process at 2 carriers, the server streaming a planted-burst stimulus
+    (TSC-0 bursts of amplitude 5000 on slots 1-3 of every frame). Every
+    detection's hard bits must equal its planted burst, and the daemon's
+    DAC blocks must reach the server as USRP packets."""
+    from openbts_ttsou_tpu_torch.ops import cuda_fir, gmsk
+    from openbts_ttsou_tpu_torch.runtime import UdpTransport
+    from openbts_ttsou_tpu_torch.trx import protocol as proto
+    from openbts_ttsou_tpu_torch.trx.daemon import (BlockTrxDaemon,
+                                                    TrxDaemonConfig)
+    from openbts_ttsou_tpu_torch.trx.usrp import (SocketBus, USRPBankRadio,
+                                                  USRPRadio)
+
+    n, slots, steps = 2, (1, 2, 3), 6
+    offs = np.concatenate([[0], np.cumsum([157, 156, 156, 156] * 2)])[:8]
+    sym = np.zeros((1, 13 * 1250), np.complex64)
+    bits = {}
+    for tn in slots:
+        bits[tn] = norm_burst(200 + tn)
+        w = 5000.0 * gmsk.modulate_burst_np(bits[tn][None], 1)[0]
+        for f in range(13):
+            sym[0, f * 1250 + offs[tn]: f * 1250 + offs[tn] + len(w)] += w
+    dev = to_device_rate(sym)[0, : 13 * 1250 * 96 // 65]
+    stim = to_i16(dev).cpu().numpy()
+    work = ROOT / "build" / "usrp_bus"
+    work.mkdir(parents=True, exist_ok=True)
+    np.save(work / "stim.npy", stim)
+    sock = work / "usrp.sock"
+    if sock.exists():
+        sock.unlink()
+    t0 = time.perf_counter()
+    srv = subprocess.Popen(
+        [sys.executable, "-m", "openbts_ttsou_tpu_torch.trx.bus_server",
+         "--socket", str(sock), "--carriers", str(n), "--hw-delay", "0",
+         "--stimulus", str(work / "stim.npy")], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    base, peer = BUS_PORT, BUS_PORT + 50
+    socks = []
+    try:
+        while not sock.exists():
+            check(srv.poll() is None and time.perf_counter() - t0 < 120,
+                  "bus server did not bind its socket")
+            time.sleep(0.05)
+        bound_s = time.perf_counter() - t0
+        radios = [USRPRadio(SocketBus(str(sock), carrier=i))
+                  for i in range(n)]
+        daemon = BlockTrxDaemon(USRPBankRadio(radios), TrxDaemonConfig(
+            base_port=base, peer_port_offset=50, n_arfcn=n, device="cuda"))
+        ctrl = [UdpTransport(peer + 3 * i + 1, "127.0.0.1", base + 3 * i + 1)
+                for i in range(n)]
+        data = [UdpTransport(peer + 3 * i + 2, "127.0.0.1", base + 3 * i + 2)
+                for i in range(n)]
+        socks = ctrl + data
+        for i in range(n):
+            for verb, a in (("RXTUNE", (890000,)), ("TXTUNE", (935000,)),
+                            ("SETTSC", (0,))):
+                ctrl[i].send(proto.pack_command(verb, *a))
+            for tn in slots:
+                ctrl[i].send(proto.pack_command("SETSLOT", tn, 1))
+        daemon.step()
+        for i in range(n):
+            ctrl[i].send(proto.pack_command("POWERON"))
+        cuda_fir.polyphase_resample_cuda.launches = 0
+        t1 = time.perf_counter()
+        for _ in range(steps):
+            daemon.step()
+        daemon.flush()
+        session_s = time.perf_counter() - t1
+        launches = {"polyphase_resample":
+                    cuda_fir.polyphase_resample_cuda.launches}
+        blocks = daemon._rx_block
+        check(daemon.on and blocks == steps, f"usrp bus: {blocks} blocks")
+        check(launches["polyphase_resample"] == 2 * blocks,
+              f"usrp bus: K1 launched {launches} in {blocks} blocks")
+        want = (blocks - 1) * 13 * len(slots)  # the first block's halo is cold
+        got = {}
+        for i in range(n):
+            dgrams = []
+            end = time.perf_counter() + 30
+            while len(dgrams) < want and time.perf_counter() < end:
+                if (d := data[i].recv(256, timeout_ms=200)) is not None:
+                    dgrams.append(d)
+            while (d := data[i].recv(256, timeout_ms=0)) is not None:
+                dgrams.append(d)
+            ups = [proto.unpack_uplink(d) for d in dgrams]
+            check(len(ups) >= want, f"usrp bus carrier {i}: {len(ups)} "
+                                    f"detections, expected {want}")
+            check({u.tn for u in ups} == set(slots),
+                  f"usrp bus carrier {i}: slots {sorted({u.tn for u in ups})}")
+            for u in ups:
+                check(np.array_equal((u.soft > 0.5).astype(np.uint8),
+                                     bits[u.tn]),
+                      f"usrp bus carrier {i}: fn {u.fn} tn {u.tn} bits")
+            got[i] = len(ups)
+        tx_bytes = [r.bus.tx_bytes for r in radios]
+        check(all(b > blocks * 24000 * 4 for b in tx_bytes),
+              f"usrp bus: {tx_bytes} bytes written, the DAC blocks did not "
+              f"reach the server")
+        daemon.close()
+    finally:
+        for s in socks:
+            s.close()
+        srv.terminate()
+        try:
+            srv_out, _ = srv.communicate(timeout=20)
+        except subprocess.TimeoutExpired:
+            srv.kill()
+            srv_out, _ = srv.communicate()
+    log(f"bus server output:\n{srv_out}")
+    out = {"phase": "usrp_bus", "carriers": n, "blocks": blocks,
+           "entry_point": "python -m openbts_ttsou_tpu_torch.trx.bus_server",
+           "server_bound_after_s": bound_s, "session_s": session_s,
+           "detections": got, "bus_tx_bytes": tx_bytes,
+           "launches": launches}
+    record(out)
+    return out
+
+
 def kernels_line(kern: dict, launches: dict) -> dict:
     """The `kernels` record: K1 at the uplink shape, every shape's times
     beside its bound, and its launches on each main path (uplink,
@@ -1098,9 +1624,17 @@ def main() -> int:
     duplex = phase_duplex()
     daemon = phase_daemon()
     phase_duplex_card_vs_cpu()
+    resident, uls, blocks = phase_resident()
+    uplink_decoded = phase_uplink_decoded(uls, blocks)
+    del uls, blocks
+    phase_resident_card_vs_cpu()
+    bus = phase_usrp_bus()
 
     launches = {"uplink": main_path["launches"],
-                "duplex": duplex["launches"], "daemon": daemon["launches"]}
+                "duplex": duplex["launches"], "daemon": daemon["launches"],
+                "resident": resident["launches"],
+                "uplink_decoded": uplink_decoded["launches"],
+                "usrp_bus": bus["launches"]}
     print(json.dumps(kernels_line(kern, launches)), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,29 @@
+"""Constant tables on the device, copied once.
+
+The FEC chains index static numpy tables (interleave maps, Viterbi
+predecessors, TDMA phase geometry) on every call. A host-to-device copy
+of a pageable array waits for the device, so each table is copied to a
+device once and the tensor is kept for later calls: after the first
+call, the FEC legs issue no host sync.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=None)
+def device_table(fn, args: tuple, device: torch.device) -> torch.Tensor:
+    """`fn(*args)`, a numpy array, as a tensor on `device`. fn must be a
+    pure function of its hashable arguments; callers must not write to
+    the tensor."""
+    return torch.from_numpy(np.ascontiguousarray(fn(*args))).to(device)
+
+
+def row_at(table: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """table[p] for a 0-d index tensor p on the table's device, without a
+    host sync (indexing with a 0-d tensor would read it on the host)."""
+    return table.index_select(0, p.reshape(1))[0]

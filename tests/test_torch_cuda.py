@@ -203,3 +203,112 @@ def test_duplex_block_compact_card_matches_cpu(card):
                                        err_msg=name)
     np.testing.assert_allclose(tg.cpu().numpy(), tc.numpy(),
                                atol=2e-4 * float(tc.abs().max()))
+
+
+# ---- the resident layer 1: Viterbi, decode leg, duplex ---------------------
+
+@pytest.mark.cuda
+def test_viterbi_tie_rule_on_card(card):
+    """Erasures (every branch ties) decode to the 0-prefix on the card as
+    on the CPU (strict <, first-minimum argmin); codewords with noise,
+    flips and erased stretches decode to the CPU's bits exactly."""
+    from openbts_ttsou_tpu_torch.gsm import fec
+
+    rng = np.random.default_rng(8)
+    u = rng.integers(0, 2, (64, 228)).astype(np.uint8)
+    u[:, -4:] = 0
+    c = fec.conv_encode(torch.from_numpy(u)).numpy().astype(np.float32)
+    soft = np.clip(c + rng.normal(0, 0.3, c.shape), 0, 1).astype(np.float32)
+    soft[:16] = 0.5  # all erased
+    soft[16:32, 100:180] = 0.5  # erased stretches
+    soft[32:48] = np.where(rng.random(c[32:48].shape) < 0.05, 1 - c[32:48],
+                           c[32:48])
+    x = torch.from_numpy(soft)
+    got = fec.viterbi_decode(x.cuda()).cpu()
+    want = fec.viterbi_decode(x)
+    assert torch.equal(got, want)
+    assert not got[:16].any()
+
+
+def _decode_inputs(c, rng):
+    """A random RxResult of one window [13, c, 8] and a prelude: soft bits
+    near 0/1 with noise, some erased bursts."""
+    f, p = 13, T.DECODE_PRELUDE
+    soft = np.clip(rng.integers(0, 2, (p + f, c, 8, 148)) * 0.8 + 0.1
+                   + rng.normal(0, 0.15, (p + f, c, 8, 148)), 0, 1)
+    soft[rng.random((p + f, c, 8)) < 0.05] = 0.5
+    soft = torch.from_numpy(soft.astype(np.float32))
+    shape = (f, c, 8)
+    res = eng.RxResult(torch.from_numpy(rng.random(shape) < 0.9),
+                       torch.from_numpy(rng.random(shape) < 0.3), soft[p:],
+                       torch.zeros(shape, dtype=torch.int32),
+                       torch.zeros(shape, dtype=torch.int32))
+    return res, soft[:p]
+
+
+@pytest.mark.cuda
+def test_decode_block_card_matches_cpu_without_syncs(card):
+    """decode_block with the prelude and the bench split at 6 phases:
+    every DecodedBlocks field the CPU's; once warm, it runs under sync
+    debug mode "error" (no host sync)."""
+    res, prev = _decode_inputs(3, np.random.default_rng(9))
+    kw = dict(xcch_tns=(0, 1, 6, 7), tch_tns=(2, 3, 4, 5), rach_tns=(0,))
+    res_g = eng.RxResult(*(x.cuda() for x in res))
+    for k, fn0 in enumerate((1000, 1001, 1007, 1013, 1020, 2715640)):
+        pv = torch.tensor(k % 2 == 0)
+        want = T.decode_block(res, torch.tensor(fn0, dtype=torch.int32), 13,
+                              5, prev_soft=prev, prev_valid=pv, **kw)
+        fn_g = torch.tensor(fn0, dtype=torch.int32).cuda()
+        pv_g, prev_g = pv.cuda(), prev.cuda()
+        got = T.decode_block(res_g, fn_g, 13, 5, prev_soft=prev_g,
+                             prev_valid=pv_g, **kw)
+        for name in T.DecodedBlocks._fields:
+            assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            T.decode_block(res_g, fn_g, 13, 5, prev_soft=prev_g,
+                           prev_valid=pv_g, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
+def test_resident_duplex_card_matches_cpu(card):
+    """ResidentL1 on 2 carriers, 2 windows of random content on every
+    slot and a noisy uplink, on the card and on the CPU: DecodedBlocks
+    exact, tx within 2e-4 of the peak; K1 twice a window on the card."""
+    from openbts_ttsou_tpu_torch.models import ResidentL1
+
+    c, fn0 = 2, 52
+    rng = np.random.default_rng(10)
+    spec = T.UplinkSpec()
+    tch_mask = np.zeros((c, 8), bool)
+    tch_mask[:, 2:6] = True
+    wins = []
+    for _ in range(2):
+        content = (rng.integers(0, 2, (4, c, 8, 184)).astype(np.uint8),
+                   rng.random((4, c, 8)) < 0.8,
+                   rng.integers(0, 2, (3, c, 8, 260)).astype(np.uint8),
+                   rng.random((3, c, 8)) < 0.8,
+                   rng.integers(0, 2, (3, c, 8, 184)).astype(np.uint8),
+                   rng.random((3, c, 8)) < 0.3, tch_mask)
+        shape = (c, spec.block_in + 2 * T.RX_HALO_DEV)
+        ul = ((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+              * 100.0).astype(np.complex64)
+        wins.append((ul, content))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        r = ResidentL1(eng.TrxConfig(n_chan=c), spec,
+                       xcch_tns=(0, 1, 6, 7), tch_tns=(2, 3, 4, 5),
+                       fn0=fn0, device=dev)
+        n0 = cuda_fir.polyphase_resample_cuda.launches
+        outs[dev] = [r.step(ul, content) for ul, content in wins]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert cuda_fir.polyphase_resample_cuda.launches == n0 + 4
+    for (tg, bg), (tc, bc) in zip(outs["cuda"], outs["cpu"]):
+        for name in T.DecodedBlocks._fields:
+            assert torch.equal(getattr(bg, name).cpu(), getattr(bc, name))
+        np.testing.assert_allclose(tg.cpu().numpy(), tc.numpy(),
+                                   atol=2e-4 * float(tc.abs().max()))
