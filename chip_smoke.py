@@ -57,7 +57,20 @@ prints no result):
     card restored on the CPU through `convert.py`;
 12. USRP bus: `BlockTrxDaemon` on the card over USRPBankRadio →
     SocketBus → a `python -m openbts_ttsou_tpu_torch.trx.bus_server`
-    process at 2 carriers with planted bursts.
+    process at 2 carriers with planted bursts;
+13. the BTS over the air at full C0 width: `BTSApp(device="cuda")` and
+    the port's per-frame `TrxDaemon(device="cuda")` in one process over a
+    `DuplexLoopbackRadio`, every C0 timeslot equipped (TN0 C-V, TN1
+    C-VII, TN2-7 TCH/F); a simulated MS (the port's ops on the CPU)
+    makes a location update, an MO call with 50 GSM 06.10 frames each way
+    over a TCH/F, and takes an MT SMS; step times, FEC call times, one
+    profiled stretch of the call; then the location update again with
+    daemon and app on the CPU: the same downlink bursts and L3 messages
+    frame by frame;
+14. the BTS entry point as processes: `BTSApp(spawn_transceiver=True,
+    device="cuda")` starts `python -m openbts_ttsou_tpu_torch.trx.daemon
+    --device cuda`, brings it up over the control sockets, follows its
+    clock through two 51-multiframes of beacon, and reaps it.
 
 Earlier lines are JSON records; the line before the last is the card's
 name and power limit; the last line is the result object.
@@ -1584,6 +1597,822 @@ def phase_usrp_bus() -> dict:
     return out
 
 
+# ---- phases 13-14: the BTS over the air ------------------------------------
+
+BTS_PORT = DAEMON_PORT + 400  # phase 13's daemon; its BTSApp listens 100 above
+BTS_SPAWN_PORT = DAEMON_PORT + 600  # phase 14's spawned daemon
+BTS_AMPL = 9000.0  # the simulated MS's burst amplitude (tests/test_e2e_lur.py)
+BTS_IMSI = "001010123456789"
+BTS_SPEECH = 50  # GSM 06.10 frames each way in the call
+BTS_PROFILE_FRAMES = 51
+
+
+#: phase 13's settings over examples/openbts_tpu.config: every C0
+#: timeslot equipped (TN0 C-V: beacon, CCCH, RACH, SDCCH/4; TN1 C-VII:
+#: SDCCH/8; TN2-7 TCH/F). The rig runs slower than the air, so the
+#: channel-recycling timers (wall clock) are raised out of the way, as
+#: tests/test_e2e_lur.py does.
+BTS_SETTINGS = (("GSM.NumC7s", "1"), ("GSM.NumTCH", "6"),
+                ("GSM.Timer.T3101", "600000"), ("GSM.Timer.T3109", "600000"),
+                ("GSM.Timer.T3111", "2500"))
+
+
+def bts_config():
+    """examples/openbts_tpu.config with BTS_SETTINGS."""
+    from openbts_ttsou_tpu_torch.utils.config import ConfigurationTable
+
+    cfg = ConfigurationTable(str(ROOT / "examples" / "openbts_tpu.config"))
+    for key, value in BTS_SETTINGS:
+        cfg.set(key, value)
+    return cfg
+
+
+class DaemonClock:
+    """The BTS frame clock slaved to the in-process daemon (the wall-clock
+    Clock assumes a radio paced in real time)."""
+
+    def __init__(self, daemon):
+        self.daemon = daemon
+
+    def fn(self):
+        return self.daemon.tx_fn
+
+    def set_fn(self, fn):
+        pass
+
+
+class BtsRig:
+    """`BTSApp` and the port's per-frame `TrxDaemon` in one process over a
+    `DuplexLoopbackRadio`, both on `device`, brought up through the
+    daemon's `handle_control` (tests/test_e2e_lur.py's rig). `pump` steps
+    both one frame at a time and keeps each step's wall time; `record`
+    collects every downlink burst the app hands the daemon, every L3
+    message that reaches Control and every one the MS decodes, by frame
+    number."""
+
+    def __init__(self, device, base_port: int, cfg=None):
+        from openbts_ttsou_tpu_torch.apps.openbts import BTSApp
+        from openbts_ttsou_tpu_torch.trx import protocol as proto
+        from openbts_ttsou_tpu_torch.trx.daemon import (TrxDaemon,
+                                                        TrxDaemonConfig)
+        from openbts_ttsou_tpu_torch.trx.radio import DuplexLoopbackRadio
+
+        self.radio = DuplexLoopbackRadio()
+        self.daemon = TrxDaemon(self.radio, TrxDaemonConfig(
+            base_port=base_port, device=device))
+        self.app = app = BTSApp(cfg or bts_config(), trx_base_port=base_port,
+                                device=device)
+        app.bts.clock = DaemonClock(self.daemon)
+        for ch in app.dcch:
+            ch.l1.clock = app.bts.clock.fn
+            ch.sacch.clock = app.bts.clock.fn
+        for tch in app.bts.tch_pool:
+            tch.l1.clock = app.bts.clock.fn
+        self.sip_out: list = []
+        app.control.sip_send = self.sip_out.append
+        slots = [(0, 5)] + [(tn, 7) for tn in app._c7_tns] + \
+            [(t.tn, 1) for t in app.bts.tch_pool]
+        for verb, args in (("RXTUNE", (890000,)), ("TXTUNE", (935000,)),
+                           ("SETTSC", (app.bts.bcc,)),
+                           *(("SETSLOT", s) for s in slots),
+                           ("POWERON", ())):
+            rsp = self.daemon.handle_control(proto.pack_command(verb, *args))
+            check(proto.parse_message(rsp)[2][:1] == ["0"],
+                  f"bts rig: {verb} {args} answered {rsp!r}")
+        self.daemon_ms: list = []
+        self.app_ms: list = []
+        self.bursts: list | None = None
+        self.l3: list | None = None
+        arfcn = app.trx.arfcn(0)
+        write, dispatch = arfcn.write_high_side, app.control.dispatch_l3
+
+        def write_logged(burst, gain_db=0):
+            if self.bursts is not None:
+                self.bursts.append((burst.fn, burst.tn,
+                                    np.asarray(burst.bits, np.uint8)
+                                    .tobytes()))
+            write(burst, gain_db)
+
+        def dispatch_logged(ch, bits):
+            if self.l3 is not None:
+                self.l3.append(("bts", app.bts.clock.fn(),
+                                np.asarray(bits, np.uint8).tobytes()))
+            dispatch(ch, bits)
+
+        arfcn.write_high_side = write_logged
+        app.control.dispatch_l3 = dispatch_logged
+
+    def record(self) -> None:
+        self.bursts, self.l3 = [], []
+
+    def pump(self, frames: int = 1) -> None:
+        for _ in range(frames):
+            t0 = time.perf_counter()
+            self.daemon.step()
+            t1 = time.perf_counter()
+            self.app.step()
+            t2 = time.perf_counter()
+            self.daemon_ms.append((t1 - t0) * 1e3)
+            self.app_ms.append((t2 - t1) * 1e3)
+
+    def reclaim(self) -> None:
+        """Hand every dedicated channel back and drop every transaction
+        (tests/test_e2e_lur.py's _reclaim_channels), so each scenario
+        starts from a fresh RACH."""
+        app, ctl = self.app, self.app.control
+        for ch in list(app.dcch) + list(app.bts.tch_pool):
+            ch.l1.close()
+            if ch.sacch is not None:
+                ch.sacch.close()
+            ch.reset()
+            app.bts.release(ch)
+        ctl.channel_transactions.clear()
+        ctl.pending_release.clear()
+        for t in list(ctl.transactions.entries()):
+            if t.sip is not None:
+                t.sip.close()
+            ctl.transactions.remove(t.id)
+        self.sip_out.clear()
+
+    def close(self) -> None:
+        self.app.shutdown()
+        self.daemon.close()
+
+
+class SimMS:
+    """A mobile station on the MS side of the rig's radio, built from the
+    port's own ops on the CPU: GMSK modulation, midamble detection and
+    demodulation, the L1 codecs and LAPDm (tests/test_e2e_lur.py's MS).
+    It holds one dedicated channel at a time."""
+
+    def __init__(self, rig: BtsRig):
+        from openbts_ttsou_tpu_torch.gsm.lapdm import L2LAPDm
+
+        self.rig, self.daemon = rig, rig.daemon
+        self.bcc = rig.app.bts.bcc
+        self.l2 = L2LAPDm(c=0, sapi=0)
+        self.l2_sms = L2LAPDm(c=0, sapi=3)
+        self.got: list = []  # L3 messages decoded on the SAPI-0 link
+        self.tn = self.dl_map = self.ul_map = None
+        self.ul_fn = self.fn_scan = 0
+
+    # -- air interface ---------------------------------------------------
+    def tx_burst(self, bits, fn: int, tn: int = 0) -> None:
+        from openbts_ttsou_tpu_torch.ops import gmsk
+        from openbts_ttsou_tpu_torch.trx.daemon import SLOT_OFFSETS
+
+        wave = BTS_AMPL * gmsk.modulate_burst_np(
+            np.asarray(bits, np.uint8)[None], 1, guard_len=9)[0]
+        self.rig.radio.ms_write(wave, self.daemon._frame_ts(fn)
+                                + int(SLOT_OFFSETS[tn]))
+
+    def tx_rach(self, ra: int, fn: int) -> None:
+        from openbts_ttsou_tpu_torch.gsm import l1fec
+        from openbts_ttsou_tpu_torch.utils import constants as C
+
+        coded = l1fec.rach_encode(torch.tensor([ra]),
+                                  torch.tensor(self.bcc)).numpy()[0]
+        bits = np.zeros(148, np.uint8)
+        bits[:8] = [0, 1, 0, 1, 0, 1, 0, 1]
+        bits[8:49] = C.RACH_SYNCH_SEQUENCE
+        bits[49:85] = coded
+        self.tx_burst(bits, fn)
+
+    def rx_soft(self, fn: int, tn: int = 0):
+        """One downlink burst demodulated off the air, or None."""
+        from openbts_ttsou_tpu_torch.ops import correlate, gmsk
+        from openbts_ttsou_tpu_torch.trx.daemon import SLOT_OFFSETS
+
+        raw = self.rig.radio.ms_read(157, self.daemon._frame_ts(fn)
+                                     + int(SLOT_OFFSETS[tn]))
+        if np.abs(raw).max() < 1.0:
+            return None
+        x = torch.from_numpy(np.ascontiguousarray(raw[None]))
+        det, _, _ = correlate.analyze_traffic_burst(x, self.bcc, 1)
+        if not bool(det.detected[0]):
+            return None
+        return gmsk.demodulate_burst(x, 1, det.amplitude,
+                                     det.toa)[0].numpy()[:148]
+
+    def rx_l2_block(self, fn: int, tn: int = 0):
+        from openbts_ttsou_tpu_torch.gsm import l1fec
+        from openbts_ttsou_tpu_torch.gsm.transfer import L2Frame
+
+        softs = []
+        for f in range(fn, fn + 4):
+            s = self.rx_soft(f, tn)
+            if s is None:
+                return None
+            softs.append(s)
+        frames, ok = l1fec.xcch_decode(torch.from_numpy(np.stack(softs))[None])
+        if not bool(ok[0]):
+            return None
+        return L2Frame(l1fec.lsb8msb(frames[0]).numpy())
+
+    def tx_l2(self, frame, fn_from: int) -> int:
+        from openbts_ttsou_tpu_torch.gsm import l1fec
+
+        bits = l1fec.lsb8msb(torch.from_numpy(np.asarray(frame.bits,
+                                                         np.uint8)))
+        fn = self.ul_map.next_write_time(fn_from)  # a block's first burst
+        while self.ul_map.reverse(fn) % 4:
+            fn = self.ul_map.next_write_time(fn + 1)
+        for b in l1fec.xcch_encode(bits[None], tsc=self.bcc)[0].numpy():
+            fn = self.ul_map.next_write_time(fn)
+            self.tx_burst(b, fn, self.tn)
+            fn += 1
+        return fn
+
+    # -- access ----------------------------------------------------------
+    def ccch_message(self, fn_from: int, frames: int, offset: int, want):
+        """Pump until an L3 message of type `want` is decoded from the CCCH
+        block at `offset` of a 51-multiframe (6: AGCH, 12: PCH)."""
+        from openbts_ttsou_tpu_torch.gsm.l3 import parse_l3
+
+        fn = fn_from
+        while fn < fn_from + frames:
+            self.rig.pump()
+            while fn < self.daemon.fn - 5:
+                if fn % 51 == offset:
+                    frame = self.rx_l2_block(fn)
+                    if frame is not None:
+                        msg = parse_l3(frame.bits[8:])  # Bbis pseudolength
+                        if want(msg):
+                            return msg
+                fn += 1
+        return None
+
+    def access(self, ra: int, l3_msg) -> None:
+        """RACH in a C-V access window → the Immediate Assignment off the
+        AGCH → SABM carrying `l3_msg` on the assigned SDCCH (contention
+        resolution)."""
+        from openbts_ttsou_tpu_torch.gsm import tdma
+        from openbts_ttsou_tpu_torch.gsm.l3 import rr
+        from openbts_ttsou_tpu_torch.gsm.lapdm import LAPDState
+        from openbts_ttsou_tpu_torch.gsm.transfer import FrameType
+
+        bts = self.rig.app.bts
+        free = bts.sdcch_available()
+        fn_r = self.daemon.fn + 8
+        while fn_r % 51 not in range(14, 37):
+            fn_r += 1
+        self.tx_rach(ra, fn_r)
+        for _ in range(80):
+            self.rig.pump()
+            if bts.sdcch_available() < free:
+                break
+        check(bts.sdcch_available() < free, f"RACH {ra:#x} not granted")
+        ia = self.ccch_message(fn_r, 160, 6, lambda m: isinstance(
+            m, rr.ImmediateAssignment) and m.reference.ra == ra)
+        check(ia is not None, f"no Immediate Assignment for RA {ra:#x}")
+        tao = ia.channel.type_and_offset
+        check(4 <= tao < 16, f"IA channel type {tao}")
+        sub = tao - 4 if tao < 8 else tao - 8
+        self.tn = ia.channel.tn
+        self.dl_map, self.ul_map = (tdma.SDCCH_4 if tao < 8
+                                    else tdma.SDCCH_8)[sub]
+        self.channel = next(c for c in self.rig.app.dcch
+                            if c.l1.tn == self.tn
+                            and c.l1.subchannel == sub)
+        self.l2._send_u(FrameType.SABM, True, self.l2.c, l3_msg.encode())
+        self.l2.state = LAPDState.AwaitingEstablish  # awaiting the UA
+        self.ul_fn = self.tx_l2(self.l2.take_l1_out()[0],
+                                self.daemon.fn + 4)
+        self.fn_scan = self.daemon.fn - 10
+
+    # -- the dedicated channel ---------------------------------------------
+    def send_l3(self, msg, l2=None) -> None:
+        from openbts_ttsou_tpu_torch.gsm.transfer import L3Frame, Primitive
+
+        (l2 or self.l2).write_high_side(
+            L3Frame(msg.encode() if hasattr(msg, "encode") else msg,
+                    Primitive.DATA))
+        self.flush()
+
+    def flush(self) -> None:
+        for l2 in (self.l2, self.l2_sms):
+            for out in l2.take_l1_out():
+                self.ul_fn = self.tx_l2(out, max(self.ul_fn,
+                                                 self.daemon.fn + 4))
+
+    def drive(self, rounds: int, want=None, until=None):
+        """Pump; decode the SDCCH downlink into both SAPs; send the MS's
+        LAPDm answers; collect SAPI-0 L3 messages. Returns the first of
+        type `want`, or True once `until()` holds, or None."""
+        from openbts_ttsou_tpu_torch.gsm.l3 import parse_l3
+
+        for _ in range(rounds):
+            self.rig.pump()
+            while self.fn_scan < self.daemon.fn - 5:
+                if self.dl_map.reverse(self.fn_scan) == 0:
+                    frame = self.rx_l2_block(self.fn_scan, self.tn)
+                    if frame is not None:
+                        (self.l2_sms if frame.sapi() == 3
+                         else self.l2).write_low_side(frame)
+                self.fn_scan += 1
+            self.flush()
+            while (l3 := self.l2.read_high_side()) is not None:
+                if self.rig.l3 is not None:
+                    self.rig.l3.append(("ms", self.daemon.fn, np.asarray(
+                        l3.bits, np.uint8).tobytes()))
+                if len(l3.bits) >= 16:
+                    m = parse_l3(l3.bits)
+                    if m is not None:
+                        self.got.append(m)
+                        if want is not None and isinstance(m, want):
+                            return m
+            if until is not None and until():
+                return True
+        return None
+
+
+def ota_location_update(rig: BtsRig) -> dict:
+    """tests/test_e2e_lur.py::test_over_the_air_location_update: RACH →
+    IA → SABM(LUR) → SIP REGISTER → 200 OK → LU Accept with a TMSI
+    decoded off the air."""
+    from openbts_ttsou_tpu_torch.gsm.l3 import common as l3c
+    from openbts_ttsou_tpu_torch.gsm.l3 import mm
+    from openbts_ttsou_tpu_torch.sip.message import SIPMessage, make_response
+
+    app, t0 = rig.app, len(rig.daemon_ms)
+    ms = SimMS(rig)
+    rig.pump(5)  # beacon warm-up
+    ms.access(0x42, mm.LocationUpdatingRequest(
+        app.bts.lai(), l3c.MobileIdentity.imsi(BTS_IMSI)))
+    check(ms.drive(120, until=lambda: bool(rig.sip_out)),
+          "no REGISTER emitted")
+    reg = SIPMessage.parse(rig.sip_out.pop())
+    check(reg.method == "REGISTER" and f"IMSI{BTS_IMSI}" in
+          (reg.get("from") or ""), f"not the MS's REGISTER: {reg.method}")
+    t = app.control.transactions.entries()[0]
+    app.control.on_sip_response(t, ms.channel, make_response(reg, 200, "OK"))
+    accept = ms.drive(140, mm.LocationUpdatingAccept)
+    check(accept is not None and accept.identity is not None,
+          f"no LocationUpdatingAccept decoded; got {ms.got}")
+    check(app.control.tmsis.imsi(accept.identity.tmsi) == BTS_IMSI,
+          "the TMSI decoded off the air is not the MS's in control.tmsis")
+    check(accept.lai.lac == app.bts.lac, "LU Accept LAC")
+    return {"tmsi": accept.identity.tmsi, "frames": len(rig.daemon_ms) - t0}
+
+
+def ota_voice_call(rig: BtsRig, speech: int, profile=None) -> dict:
+    """tests/test_e2e_lur.py::test_over_the_air_voice_call with `speech`
+    GSM 06.10 frames each way: access → CM Service → Setup → early
+    assignment to a TCH/F → Connect → AssignmentComplete; speech from the
+    MS's TCH encoder over the air to RTP, and RTP to the air decoded by
+    the MS; then the MS's DISC hands the SDCCH back. `profile(rig, frame)`,
+    when given, runs `frame()` (one frame of the call) BTS_PROFILE_FRAMES
+    times once half the downlink speech has been sent."""
+    import socket
+    import struct
+
+    from openbts_ttsou_tpu_torch.control.voice import (payload_to_rtp,
+                                                       rtp_to_payload)
+    from openbts_ttsou_tpu_torch.gsm import channels, tdma
+    from openbts_ttsou_tpu_torch.gsm.l3 import cc, mm, rr
+    from openbts_ttsou_tpu_torch.gsm.l3 import common as l3c
+    from openbts_ttsou_tpu_torch.gsm.transfer import (L3Frame, Primitive,
+                                                      RxBurst)
+    from openbts_ttsou_tpu_torch.sip.message import (SIPMessage, make_response,
+                                                     make_sdp)
+
+    app, daemon, t0 = rig.app, rig.daemon, len(rig.daemon_ms)
+    rng = np.random.default_rng(7)
+    ms = SimMS(rig)
+    free = app.bts.sdcch_available()
+    ms.access(0x33, mm.CMServiceRequest(
+        service_type=1, identity=l3c.MobileIdentity.imsi(BTS_IMSI)))
+    check(ms.drive(140, mm.CMServiceAccept) is not None,
+          f"no CMServiceAccept; got {ms.got}")
+    ms.send_l3(cc.Setup(cc.CalledPartyBCDNumber("8005551000")))
+    assign = ms.drive(420, rr.AssignmentCommand) or next(
+        (m for m in ms.got if isinstance(m, rr.AssignmentCommand)), None)
+    check(assign is not None, f"no AssignmentCommand; got {ms.got}")
+    tch_tn = assign.channel.tn
+    check(any(t.tn == tch_tn for t in app.bts.tch_pool),
+          f"assigned TN{tch_tn} is not a TCH/F")
+    invite = next(SIPMessage.parse(b) for b in rig.sip_out
+                  if SIPMessage.parse(b).method == "INVITE")
+    rig.sip_out.clear()
+    t = max((x for x in app.control.transactions.entries()
+             if x.imsi == BTS_IMSI and x.called == "8005551000"),
+            key=lambda x: x.id)
+    rtp = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        rtp.bind(("127.0.0.1", 0))
+        rtp.setblocking(False)
+        app.control.on_sip_response(t, ms.channel, make_response(
+            invite, 200, "OK", to_tag="vv",
+            body=make_sdp("127.0.0.1", rtp.getsockname()[1])))
+        check(ms.drive(160, cc.Connect) is not None,
+              f"no Connect; got {ms.got}")
+        ms.send_l3(rr.AssignmentComplete())
+        for _ in range(6):
+            ms.drive(50)
+            if getattr(t, "voice", None) is not None:
+                break
+        check(getattr(t, "voice", None) is not None,
+              "voice pump not attached")
+        check(t.tch.l1.active and t.tch.tn == tch_tn, "TCH not open")
+        setup_frames = len(rig.daemon_ms) - t0
+
+        # the MS's TCH modem on the CPU: an encoder for the uplink, a
+        # decoder for the downlink
+        ms_tx = channels.TCHFACCHL1(tch_tn, tdma.FACCH_TCHF,
+                                    tdma.FACCH_TCHF, tsc=ms.bcc,
+                                    device="cpu")
+        ms_rx = channels.TCHFACCHL1(tch_tn, tdma.FACCH_TCHF,
+                                    tdma.FACCH_TCHF, tsc=ms.bcc,
+                                    device="cpu")
+        ms_tx.open(0)
+        ms_rx.open(0)
+        fn0 = daemon.fn + 6  # on an 8-burst interleaver boundary
+        while (tdma.FACCH_TCHF.reverse(fn0) or 0) % 8 != 0 or \
+                tdma.FACCH_TCHF.reverse(fn0) is None:
+            fn0 += 1
+        ms_tx.next_write_fn = fn0
+        up = [rng.integers(0, 2, 260).astype(np.uint8)
+              for _ in range(speech)]
+        down = [rng.integers(0, 2, 260).astype(np.uint8)
+                for _ in range(speech)]
+        for fr in up:
+            ms_tx.send_tch(fr)
+        for _ in range(speech + 1):  # the speech, then a filler to flush
+            ms_tx.dispatch_block()
+        bursts = list(ms_tx.tx_queue)
+        ms_tx.tx_queue.clear()
+        bts_port = t.sip.rtp.local_port
+        up_set = {fr.tobytes() for fr in up}
+        down_set = {fr.tobytes() for fr in down}
+        last_fn = bursts[-1].fn
+        st = {"sent": 0, "bi": 0, "fn_tch": daemon.fn - 2, "frames": 0,
+              "up_ok": 0}
+
+        def speech_frame():
+            """One frame of the call: the MS's uplink bursts due, one RTP
+            frame every 4 frames (about the air's pace), both steps, the
+            RTP the BTS sent, and the MS's TCH receiver."""
+            while st["bi"] < len(bursts) and \
+                    bursts[st["bi"]].fn <= daemon.fn + 6:
+                b = bursts[st["bi"]]
+                ms.tx_burst(b.bits, b.fn, tn=tch_tn)
+                st["bi"] += 1
+            if st["sent"] < speech and st["frames"] % 4 == 0:
+                n = st["sent"]
+                rtp.sendto(struct.pack("!BBHII", 0x80, 3, n, n * 160, 0x1234)
+                           + payload_to_rtp(down[n]), ("127.0.0.1", bts_port))
+                st["sent"] += 1
+            st["frames"] += 1
+            rig.pump()
+            while True:
+                try:
+                    data, _ = rtp.recvfrom(2048)
+                except BlockingIOError:
+                    break
+                u = rtp_to_payload(data[12:]) if len(data) >= 45 else None
+                st["up_ok"] += u is not None and u.tobytes() in up_set
+            while st["fn_tch"] < daemon.fn - 5:
+                fn = st["fn_tch"]
+                if tdma.FACCH_TCHF.reverse(fn) is not None:
+                    soft = ms.rx_soft(fn, tn=tch_tn)
+                    if soft is not None:
+                        ms_rx.write_low_side(RxBurst(soft, fn=fn, tn=tch_tn))
+                st["fn_tch"] += 1
+
+        profiled = None
+        for _ in range(40 * speech + 400):
+            if profile is not None and profiled is None and \
+                    st["sent"] >= speech // 2:
+                profiled = profile(rig, speech_frame)
+            else:
+                speech_frame()
+            up_ok = st["up_ok"]
+            dn_ok = sum(d.tobytes() in down_set for d in ms_rx.speech_out)
+            if daemon.fn > last_fn + 8 and up_ok >= speech and \
+                    dn_ok >= speech:
+                break
+        # the JAX test lets 1 frame in 3 go (>= 2 of 3 each way)
+        check(up_ok >= speech - 1, f"uplink speech: {up_ok} of {speech} "
+                                   f"frames reached RTP bit-exact")
+        check(dn_ok >= speech - 1, f"downlink speech: {dn_ok} of {speech} "
+                                   f"frames decoded bit-exact by the MS")
+        speech_frames = len(rig.daemon_ms) - t0 - setup_frames
+        hold = facch_hold(rig, ms, ms_tx, ms_rx, tch_tn, t)
+    finally:
+        rtp.close()
+
+    # the MS releases its SDCCH link over the air (DISC → reclaim),
+    # answering the BTS's LAPDm there as it goes
+    ms.l2.write_high_side(L3Frame(primitive=Primitive.RELEASE))
+    ms.flush()
+    check(ms.drive(300, until=lambda: app.bts.sdcch_available() == free),
+          "SDCCH not reclaimed after the MS's DISC")
+    return {"tch_tn": tch_tn, "speech_up": up_ok, "speech_down": dn_ok,
+            "setup_frames": setup_frames, "speech_frames": speech_frames,
+            "facch_frames": hold, "frames": len(rig.daemon_ms) - t0,
+            "profile": profiled}
+
+
+def facch_hold(rig: BtsRig, ms: SimMS, ms_tx, ms_rx, tch_tn: int, t) -> int:
+    """In-call signalling on the FACCH (tests/test_e2e_lur.py's very-early
+    call and its Hold): the MS establishes LAPDm on the TCH's FACCH and
+    asks to hold the call; the BTS answers HoldReject, cause 0x3f, over
+    the FACCH. Returns the frames it took."""
+    from openbts_ttsou_tpu_torch.gsm.l3 import cc, parse_l3
+    from openbts_ttsou_tpu_torch.gsm.lapdm import L2LAPDm, LAPDState
+    from openbts_ttsou_tpu_torch.gsm.transfer import (ChannelType, L3Frame,
+                                                      Primitive, RxBurst)
+    from openbts_ttsou_tpu_torch.gsm import tdma
+
+    daemon, n0 = rig.daemon, len(rig.daemon_ms)
+    l2 = L2LAPDm(c=0, sapi=0, chan_type=ChannelType.FACCH)
+    ms_rx.upstream = l2
+    fn_scan = daemon.fn - 2
+    got = []
+
+    def drive(rounds, done):
+        nonlocal fn_scan
+        for _ in range(rounds):
+            rig.pump()
+            while fn_scan < daemon.fn - 5:
+                if tdma.FACCH_TCHF.reverse(fn_scan) is not None:
+                    soft = ms.rx_soft(fn_scan, tn=tch_tn)
+                    if soft is not None:
+                        ms_rx.write_low_side(RxBurst(soft, fn=fn_scan,
+                                                     tn=tch_tn))
+                fn_scan += 1
+            outs = l2.take_l1_out()
+            if outs:  # FACCH steals whole blocks on a fresh diagonal
+                ms_tx.resync(daemon.fn, lead=5)
+                for out in outs:
+                    ms_tx.send_l2(out)
+                while ms_tx._facch_q or (ms_tx._offset != 0
+                                         and ms_tx.tx_queue):
+                    ms_tx.dispatch_block()
+                ms_tx.dispatch_block()  # the second half of the diagonal
+            while ms_tx.tx_queue and ms_tx.tx_queue[0].fn <= daemon.fn + 30:
+                b = ms_tx.tx_queue.popleft()
+                if b.fn > daemon.fn - 2:
+                    ms.tx_burst(b.bits, b.fn, tn=tch_tn)
+            while (l3 := l2.read_high_side()) is not None:
+                if len(l3.bits) >= 16 and (m := parse_l3(l3.bits)):
+                    got.append(m)
+            if done():
+                return True
+        return False
+
+    l2.write_high_side(L3Frame(primitive=Primitive.ESTABLISH))
+    check(drive(200, lambda: l2.state == LAPDState.LinkEstablished),
+          "FACCH link not established")
+    hold = cc.Hold()
+    hold.ti = t.ti_value
+    l2.write_high_side(L3Frame(hold.encode(), Primitive.DATA))
+    check(drive(300, lambda: any(isinstance(m, cc.HoldReject)
+                                 for m in got)),
+          f"no HoldReject on the FACCH; got {got}")
+    rej = next(m for m in got if isinstance(m, cc.HoldReject))
+    check(rej.cause.value == 0x3F and rej.ti == (1 << 3) | t.ti_value,
+          f"HoldReject cause {rej.cause.value:#x} ti {rej.ti:#x}")
+    return len(rig.daemon_ms) - n0
+
+
+def ota_mt_sms(rig: BtsRig) -> dict:
+    """tests/test_e2e_lur.py::test_over_the_air_mt_sms: page on the PCH →
+    RACH → SABM(Paging Response) → SAPI-3 link → SMS-DELIVER off the air
+    → CP-ACK and CP-DATA(RP-ACK) → transaction closed, SDCCH released."""
+    from openbts_ttsou_tpu_torch.control.common import ServiceType
+    from openbts_ttsou_tpu_torch.gsm.l3 import rr
+    from openbts_ttsou_tpu_torch.gsm.lapdm import LAPDState
+    from openbts_ttsou_tpu_torch.sms import messages as sms_m
+
+    app, daemon, t0 = rig.app, rig.daemon, len(rig.daemon_ms)
+    ms = SimMS(rig)
+    free = app.bts.sdcch_available()
+    text = "wake up neo"
+    app.control.initiate_mtsms(BTS_IMSI, "5552000", text)
+    page = ms.ccch_message(daemon.fn, 240, 12, lambda m: isinstance(
+        m, rr.PagingRequestType1) and any(
+            i is not None and i.kind != 0 for i in (m.id1, m.id2)))
+    check(page is not None, "no page decoded on the PCH")
+    page_id = next(i for i in (page.id1, page.id2)
+                   if i is not None and i.kind != 0)
+    ms.access(0x29, rr.PagingResponse(page_id))
+    deliver = None
+
+    def delivered():
+        nonlocal deliver
+        while (l3 := ms.l2_sms.read_high_side()) is not None:
+            if len(l3.bits) >= 16:
+                cp = sms_m.parse_cp(np.packbits(l3.bits).tobytes())
+                if isinstance(cp, sms_m.CPData):
+                    rp = sms_m.parse_rp(cp.rpdu)
+                    if isinstance(rp, sms_m.RPData):
+                        deliver = sms_m.TLDeliver.parse(rp.tpdu)
+        return deliver is not None
+
+    check(ms.drive(240, until=delivered), "no SMS-DELIVER decoded on SAPI 3")
+    check(deliver.text == text and deliver.orig == "5552000",
+          f"SMS-DELIVER {deliver.orig}: {deliver.text!r}")
+    check(ms.l2_sms.state == LAPDState.LinkEstablished, "SAPI-3 link down")
+    for pdu in (sms_m.CPAck(ti=0).encode(),
+                sms_m.CPData(ti=0, rpdu=sms_m.RPAck(
+                    reference=1, mo=True).encode()).encode()):
+        ms.send_l3(np.unpackbits(np.frombuffer(pdu, np.uint8)), ms.l2_sms)
+
+    def closed():
+        return app.control.transactions.find_by_imsi(
+            BTS_IMSI, services=(ServiceType.MobileTerminatedSMS,)) is None \
+            and app.bts.sdcch_available() == free
+
+    check(ms.drive(700, until=closed),
+          "MT-SMS transaction not closed / SDCCH not released")
+    return {"text": deliver.text, "frames": len(rig.daemon_ms) - t0}
+
+
+#: the channels' FEC calls (gsm/channels.py), each timed around its call:
+#: each ends in the `.cpu()` that brings its result back
+FEC_CALLS = ("xcch_encode_bursts", "xcch_decode_block", "rach_decode_bits",
+             "sch_encode_burst", "facch_encode", "tch_encode_block",
+             "map_bursts", "facch_decode_frame", "tch_decode_frame")
+
+
+def timed_fec_calls(times: dict):
+    """Wrap the channels' FEC calls so each call on a CUDA device appends
+    its wall time (ms) to times[name]; returns a function that undoes it."""
+    from openbts_ttsou_tpu_torch.gsm import channels
+
+    saved = {name: getattr(channels, name) for name in FEC_CALLS}
+
+    def wrap(name, fn):
+        def timed(*args):
+            if args[-1].type != "cuda":  # the MS's codecs run on the CPU
+                return fn(*args)
+            t0 = time.perf_counter()
+            out = fn(*args)
+            times.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    for name, fn in saved.items():
+        setattr(channels, name, wrap(name, fn))
+    return lambda: [setattr(channels, n, f) for n, f in saved.items()]
+
+
+def stats_ms(xs: list) -> dict:
+    xs = sorted(xs)
+    return {"n": len(xs), "median": statistics.median(xs),
+            "p99": xs[min(len(xs) - 1, int(0.99 * len(xs)))],
+            "max": xs[-1]}
+
+
+def profile_call_frames(rig: BtsRig, frame) -> dict:
+    """BTS_PROFILE_FRAMES frames of the call under torch.profiler: device
+    busy time, device events and kernel launches a frame, against the
+    BTS's unprofiled step time (daemon + app) over as many frames just
+    before."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n = BTS_PROFILE_FRAMES
+    wall_ms = sum(rig.daemon_ms[-n:]) + sum(rig.app_ms[-n:])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            frame()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchKernelExC"))
+    check(busy_ms > 0, "bts: the profiler saw no device time")
+    top = sorted(dev, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    return {"frames": n, "device_busy_ms": busy_ms,
+            "bts_step_ms_unprofiled": wall_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "device_events_per_frame": sum(e.count for e in dev) / n,
+            "launches_per_frame": launches / n,
+            "top": [{"name": e.key[:70], "count": e.count,
+                     "ms": e.self_device_time_total / 1e3} for e in top]}
+
+
+def phase_bts() -> dict:
+    """The BTS over the air at full C0 width on the card (module
+    docstring, phase 13), then the location update again with daemon and
+    app on the CPU: the same downlink bursts and L3 messages by FN."""
+    from openbts_ttsou_tpu_torch.ops import cuda_fir
+
+    fec_ms: dict = {}
+    rig = BtsRig("cuda", BTS_PORT)
+    undo = timed_fec_calls(fec_ms)
+    cuda_fir.polyphase_resample_cuda.launches = 0
+    t0 = time.perf_counter()
+    try:
+        rig.record()
+        lur = ota_location_update(rig)
+        card = (rig.bursts, rig.l3)
+        rig.bursts = rig.l3 = None
+        rig.reclaim()
+        call = ota_voice_call(rig, BTS_SPEECH, profile=profile_call_frames)
+        rig.reclaim()
+        sms = ota_mt_sms(rig)
+    finally:
+        undo()
+        rig.close()
+    session_s = time.perf_counter() - t0
+    launches = {"polyphase_resample":
+                cuda_fir.polyphase_resample_cuda.launches}
+    check(launches["polyphase_resample"] == 0,
+          f"bts: K1 launched {launches} on the symbol-rate path")
+    frames = len(rig.daemon_ms)
+
+    cpu = BtsRig("cpu", BTS_PORT + 10)
+    try:
+        cpu.record()
+        lur_cpu = ota_location_update(cpu)
+    finally:
+        cpu.close()
+    check(lur_cpu["tmsi"] == lur["tmsi"], "bts card vs CPU: TMSI")
+    check(cpu.bursts == card[0],
+          f"bts card vs CPU: {len(card[0])} and {len(cpu.bursts)} downlink "
+          f"bursts differ")
+    check(cpu.l3 == card[1], "bts card vs CPU: the L3 messages differ")
+    out = {"phase": "bts", "config": "examples/openbts_tpu.config + "
+                                     "GSM.NumC7s 1, GSM.NumTCH 6",
+           "frames": frames, "session_s": session_s,
+           "air_ms_per_frame": 60 / 13,
+           "daemon_step_ms": stats_ms(rig.daemon_ms),
+           "app_step_ms": stats_ms(rig.app_ms),
+           "location_update": lur, "call": call, "mt_sms": sms,
+           "fec_call_ms": {k: stats_ms(v) for k, v in fec_ms.items()},
+           "card_vs_cpu": {"downlink_bursts": len(card[0]),
+                           "l3_messages": len(card[1])},
+           "launches": launches}
+    record(out)
+    return out
+
+
+def phase_bts_entry_point() -> dict:
+    """`BTSApp(spawn_transceiver=True)` on the card: it starts `python -m
+    openbts_ttsou_tpu_torch.trx.daemon --device cuda` as a child; bring-up
+    over the control sockets within a deadline; clock indications; the
+    app steps two 51-multiframes of beacon traffic; shutdown reaps the
+    child."""
+    from openbts_ttsou_tpu_torch.apps.openbts import BTSApp
+
+    t0 = time.perf_counter()
+    app = BTSApp(bts_config(), trx_base_port=BTS_SPAWN_PORT,
+                 spawn_transceiver=True, device="cuda")
+    child = app.trx_child
+    try:
+        check(child is not None and "--device" in child.args and
+              child.args[child.args.index("--device") + 1] == "cuda",
+              f"spawned {child and child.args}")
+        clocks = []
+        handle = app.trx.handle_clock
+
+        def counted(data):
+            clocks.append(time.perf_counter())
+            handle(data)
+
+        app.trx.handle_clock = counted
+        app.trx.start()
+        # the child imports torch and reaches the card first
+        while app.trx.arfcn(0).send_command("POWEROFF", retries=1) is None:
+            check(child.poll() is None, "the daemon child exited")
+            check(time.perf_counter() - t0 < 120,
+                  "the daemon child did not answer in 120 s")
+        answered_s = time.perf_counter() - t0
+        check(app.bringup(), "bring-up failed")
+        up_s = time.perf_counter() - t0
+        n0 = len(clocks)
+        fn0 = app._beacon_fn
+        steps = 0
+        while app._beacon_fn - fn0 < 102 or len(clocks) <= n0:
+            check(child.poll() is None, "the daemon child exited")
+            check(time.perf_counter() - t0 < 240, "the app stalled")
+            app.step()
+            steps += 1
+            time.sleep(0.002)
+        beacon = app._beacon_fn - fn0
+    finally:
+        app.shutdown()
+    check(child.poll() is not None, "shutdown did not reap the child")
+    out = {"phase": "bts_entry_point",
+           "entry_point": " ".join(child.args[1:]),
+           "answered_after_s": answered_s, "bringup_after_s": up_s,
+           "clock_indications": len(clocks),
+           "app_steps": steps, "beacon_frames": beacon,
+           "session_s": time.perf_counter() - t0,
+           "child_returncode": child.returncode}
+    record(out)
+    return out
+
+
 def kernels_line(kern: dict, launches: dict) -> dict:
     """The `kernels` record: K1 at the uplink shape, every shape's times
     beside its bound, and its launches on each main path (uplink,
@@ -1597,6 +2426,9 @@ def kernels_line(kern: dict, launches: dict) -> dict:
         "source": "openbts_ttsou_tpu_torch/csrc/polyphase_resample.cu",
         "replaces": "openbts_ttsou_tpu/ops/pallas_fir.py:121",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "launches_note": "bts: the BTS's per-frame TrxDaemon runs at "
+                         "symbol rate (rx_step/tx_step), so K1 is not on "
+                         "its path",
         "max_abs_err": max(r["max_abs_err"] for r in kern.values()),
         "ms": up["ms"], "plain_ms": up["plain_ms"],
         "bound_ms": up["bound_ms"], "bound_by": up["bound_by"],
@@ -1629,12 +2461,14 @@ def main() -> int:
     del uls, blocks
     phase_resident_card_vs_cpu()
     bus = phase_usrp_bus()
+    bts = phase_bts()
+    phase_bts_entry_point()
 
     launches = {"uplink": main_path["launches"],
                 "duplex": duplex["launches"], "daemon": daemon["launches"],
                 "resident": resident["launches"],
                 "uplink_decoded": uplink_decoded["launches"],
-                "usrp_bus": bus["launches"]}
+                "usrp_bus": bus["launches"], "bts": bts["launches"]}
     print(json.dumps(kernels_line(kern, launches)), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -312,3 +312,144 @@ def test_resident_duplex_card_matches_cpu(card):
             assert torch.equal(getattr(bg, name).cpu(), getattr(bc, name))
         np.testing.assert_allclose(tg.cpu().numpy(), tc.numpy(),
                                    atol=2e-4 * float(tc.abs().max()))
+
+
+# ---- the BTS's L1 channels: each FEC call on the card and on the CPU -------
+
+class _Upstream:
+    def __init__(self, frames):
+        self.frames = frames
+
+    def write_low_side(self, frame):
+        self.frames.append(frame.bits)
+
+
+def _fec_cases():
+    """(name, call(device)) for every FEC call of gsm/channels.py, on
+    seeded inputs: clean and noisy decodes, both TCH diagonal offsets."""
+    from openbts_ttsou_tpu_torch.gsm import channels as ch
+
+    rng = np.random.default_rng(21)
+    bits = rng.integers(0, 2, 184).astype(np.uint8)
+    coded = ch.xcch_encode_bursts(bits, 2, torch.device("cpu"))
+    noisy = np.clip(coded + 0.3 * rng.standard_normal(coded.shape), 0, 1
+                    ).astype(np.float32)
+    ra_soft = np.clip(rng.integers(0, 2, 36) + 0.2 * rng.standard_normal(36),
+                      0, 1).astype(np.float32)
+    iframe = np.clip(rng.integers(0, 2, (8, 114))
+                     + 0.25 * rng.standard_normal((8, 114)), 0, 1
+                     ).astype(np.float32)
+    d = rng.integers(0, 2, 260).astype(np.uint8)
+    halves = rng.integers(0, 2, (4, 114)).astype(np.uint8)
+    return [
+        ("xcch_encode", lambda dev: ch.xcch_encode_bursts(bits, 2, dev)),
+        ("xcch_encode_no_tsc",
+         lambda dev: ch.xcch_encode_bursts(bits, None, dev)),
+        ("xcch_decode_clean",
+         lambda dev: ch.xcch_decode_block(coded.astype(np.float32), dev)),
+        ("xcch_decode_noisy", lambda dev: ch.xcch_decode_block(noisy, dev)),
+        ("rach_decode", lambda dev: ch.rach_decode_bits(ra_soft, 21, dev)),
+        ("sch_encode", lambda dev: ch.sch_encode_burst(45, 1234, 17, 3, dev)),
+        ("facch_encode", lambda dev: ch.facch_encode(bits, dev)),
+        ("tch_encode", lambda dev: ch.tch_encode_block(d, dev)),
+        ("map_bursts", lambda dev: ch.map_bursts(halves, (1, 0), 2, dev)),
+        ("facch_decode_0", lambda dev: ch.facch_decode_frame(iframe, 0, dev)),
+        ("facch_decode_4", lambda dev: ch.facch_decode_frame(iframe, 4, dev)),
+        ("tch_decode_0", lambda dev: ch.tch_decode_frame(iframe, 0, dev)),
+        ("tch_decode_4", lambda dev: ch.tch_decode_frame(iframe, 4, dev)),
+    ]
+
+
+@pytest.mark.cuda
+def test_channel_fec_card_matches_cpu(card):
+    for name, call in _fec_cases():
+        got, want = call(torch.device("cuda")), call(torch.device("cpu"))
+        if isinstance(want, tuple):
+            assert got[0] == want[0], name
+            np.testing.assert_array_equal(got[1], want[1], err_msg=name)
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_sacch_and_tch_channels_card_match_cpu(card):
+    """SACCH (its L1 header) and TCH/FACCH both ways as channel objects:
+    the card's bursts, frames and speech are the CPU's."""
+    from openbts_ttsou_tpu_torch.gsm import channels as ch
+    from openbts_ttsou_tpu_torch.gsm import tdma
+    from openbts_ttsou_tpu_torch.gsm.transfer import L2Frame, RxBurst
+
+    rng = np.random.default_rng(22)
+    frames = [rng.integers(0, 2, 184).astype(np.uint8) for _ in range(3)]
+    speech = [rng.integers(0, 2, 260).astype(np.uint8) for _ in range(4)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        got = []
+        sa = ch.SACCHL1(0, *tdma.SACCH_C4[1], tsc=2, device=dev)
+        sa.open(0)
+        sa.ordered_ms_power, sa.ordered_ms_timing = 15, 7
+        up = []
+        sa.upstream = _Upstream(up)
+        for f in frames:
+            sa.send_l2(L2Frame(f))
+        fn = 0
+        for b in sa.tx_queue:
+            fn = sa.uplink.next_write_time(fn)
+            sa.write_low_side(RxBurst(b.bits.astype(np.float32), fn=fn, tn=0))
+            fn += 1
+        got += [b.bits.tobytes() for b in sa.tx_queue]
+        got += [np.asarray(x).tobytes() for x in up]
+        got.append((sa.actual_ms_power, sa.actual_ms_timing))
+        tch = ch.TCHFACCHL1(2, tdma.FACCH_TCHF, tdma.FACCH_TCHF, tsc=2,
+                            device=dev)
+        tch.open(0)
+        tch_up = []
+        tch.upstream = _Upstream(tch_up)
+        for k, s in enumerate(speech):
+            tch.send_tch(s)
+            if k == 1:
+                tch.send_l2(L2Frame(frames[0]))
+        for _ in range(len(speech) + 2):
+            tch.dispatch_block()
+        for b in list(tch.tx_queue):
+            tch.write_low_side(RxBurst(b.bits.astype(np.float32), fn=b.fn,
+                                       tn=2))
+        got += [b.bits.tobytes() for b in tch.tx_queue]
+        got += [np.asarray(x).tobytes() for x in tch.speech_out]
+        got += [np.asarray(x).tobytes() for x in tch_up]
+        got.append((tch.good_frames, tch.bad_frames))
+        out[dev] = got
+    assert out["cuda"] == out["cpu"]
+    assert len(out["cpu"]) > 40
+
+
+@pytest.mark.cuda
+def test_bts_app_on_card(card):
+    """BTSApp(device="cuda") builds, runs its channels' FEC on the card with
+    the constant tables there, and generates the CPU's beacon."""
+    from openbts_ttsou_tpu_torch.apps.openbts import BTSApp
+    from openbts_ttsou_tpu_torch.gsm import fec, l1fec
+
+    beacons = {}
+    for dev, port in (("cuda", 53470), ("cpu", 53480)):
+        app = BTSApp(trx_base_port=port, device=dev)
+        try:
+            sent = []
+            app.trx.arfcn(0).write_high_side = lambda b, gain_db=0: \
+                sent.append((b.fn, b.tn, b.bits.tobytes()))
+            for fn in range(102):
+                app._generate_downlink(fn)
+            beacons[dev] = sent
+            if dev == "cuda":
+                chans = [app.sch, app.fcch, app.bcch, app.agch, app.pch,
+                         app.rach, *(c.l1 for c in app.dcch),
+                         *(c.sacch for c in app.dcch),
+                         *(t.l1 for t in app.bts.tch_pool)]
+                assert all(c.device.type == "cuda" for c in chans)
+        finally:
+            app.shutdown()
+    cuda = torch.device("cuda")
+    assert l1fec._xcch_map(cuda).is_cuda
+    assert fec.training_sequences_on(cuda).is_cuda
+    # 102 frames: FCCH 10, SCH 10, BCCH 2 blocks of 4 (no CCCH traffic)
+    assert beacons["cuda"] == beacons["cpu"] and len(beacons["cpu"]) == 28
