@@ -63,17 +63,40 @@ prints no result):
     `DuplexLoopbackRadio`, every C0 timeslot equipped (TN0 C-V, TN1
     C-VII, TN2-7 TCH/F); a simulated MS (the port's ops on the CPU)
     makes a location update, an MO call with 50 GSM 06.10 frames each way
-    over a TCH/F, and takes an MT SMS; step times, FEC call times, one
+    over a TCH/F, takes an MT SMS, and sends itself an SMS through the
+    port's smqueue; step times, FEC call times, one
     profiled stretch of the call; then the location update again with
     daemon and app on the CPU: the same downlink bursts and L3 messages
     frame by frame;
 14. the BTS entry point as processes: `BTSApp(spawn_transceiver=True,
     device="cuda")` starts `python -m openbts_ttsou_tpu_torch.trx.daemon
     --device cuda`, brings it up over the control sockets, follows its
-    clock through two 51-multiframes of beacon, and reaps it.
+    clock through two 51-multiframes of beacon, and reaps it;
+15. sharded: `make_mesh(4, "cuda")`, a (chan 2, time 2) mesh of four
+    shards on cuda:0, at 512 carriers and 13 frames a shard on the
+    uplink main path's stream: 3 steps of `sharded_uplink_pipeline` with
+    the state carry, 3 of `sharded_duplex_pipeline` and 2 of its decoded
+    mode with the bench's slot split, held against the serial
+    `uplink_block`/`downlink_block` over the same 26-frame windows
+    (detections, RACH flags, RSSI and timing exactly and soft bits to
+    5e-3 on interior frames, the threshold at every step boundary, the
+    tx bit-identical); ms a step, K1's launches (4 a step, 8 a duplex
+    step, counted over the sharded steps alone), the mesh's bytes a step
+    and one profiled step;
+16. sharded card against CPU: the same mesh at 8 carriers on the card
+    and on the CPU over 2 steps of the adversarial streams: detections
+    and the integer state equal;
+17. the distributed runtime as processes: `python -m
+    openbts_ttsou_tpu_torch.parallel.worker` at world size 1 over NCCL
+    and `python -m openbts_ttsou_tpu_torch.parallel.dryrun --shards 4`
+    on the card, side by side; both exit 0 with their JSON `ok`. At
+    world size 1 no mesh collective crosses ranks, so NCCL carries only
+    the process group's start and one all-reduce; the mesh's NCCL
+    send/recv and all-gather wait for a machine with two cards.
 
-Earlier lines are JSON records; the line before the last is the card's
-name and power limit; the last line is the result object.
+Earlier lines are JSON records (the last of them each phase's wall time,
+then the kernels line); the line before the last is the card's name and
+power limit; the last line is the result object.
 """
 
 from __future__ import annotations
@@ -95,10 +118,13 @@ TIMED_REPS = 25
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 SLEEP_CYCLES = 100_000_000  # torch.cuda._sleep ahead of timed calls, ~50 ms
-#: K1's shapes on the main paths, (p, q, taps, T) on [N_CHAN, T]: the
-#: uplink, its downlink stimulus, and the duplex block's two calls
-K1_SHAPES = ((65, 96, 961, 24000), (96, 65, 651, 16250),
-             (65, 96, 961, 24192), (96, 65, 651, 16380))
+#: K1's shapes on the main paths, (rows, p, q, taps, T) on [rows, T]: the
+#: uplink, its downlink stimulus, the duplex block's two calls, and a
+#: shard's two calls on phase 15's (chan 2, time 2) mesh
+K1_SHAPES = ((N_CHAN, 65, 96, 961, 24000), (N_CHAN, 96, 65, 651, 16250),
+             (N_CHAN, 65, 96, 961, 24192), (N_CHAN, 96, 65, 651, 16380),
+             (N_CHAN // 2, 65, 96, 961, 24192),
+             (N_CHAN // 2, 96, 65, 651, 16380))
 DAEMON_CHAN = 4  # carriers of the wire daemon (each binds 2 UDP ports)
 DAEMON_PORT = 52000  # its base port; the BTS side listens 50 above
 ROOT = Path(__file__).resolve().parent
@@ -204,24 +230,25 @@ def phase_kernels() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
-    for p, q, taps, t_in in K1_SHAPES:
-        x = torch.randn((N_CHAN, t_in), dtype=torch.complex64, device="cuda",
+    for n_rows, p, q, taps, t_in in K1_SHAPES:
+        x = torch.randn((n_rows, t_in), dtype=torch.complex64, device="cuda",
                         generator=gen)
         lpf = fir.resampler_lpf(p, q, taps)
         # every shape of the system runs a compile-time instantiation;
         # the runtime-width one must not take them quietly
         inst = cuda_fir.instantiation(p, q, lpf)
         check(inst != "runtime",
-              f"K1 {p}/{q} [{N_CHAN}, {t_in}]: runtime-width instantiation")
+              f"K1 {p}/{q} [{n_rows}, {t_in}]: runtime-width instantiation")
         got = cuda_fir.polyphase_resample_cuda(x, p, q, lpf)
         want = cuda_fir.polyphase_resample_plain(x, p, q, lpf)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
         check(got.shape == want.shape and bool(torch.isfinite(got).all()),
-              f"K1 {p}/{q}: shape or non-finite output")
+              f"K1 {p}/{q} [{n_rows}, {t_in}]: shape or non-finite output")
         check(err <= 2e-4 * scale,
-              f"K1 {p}/{q}: max|kernel - plain| {err} > 2e-4 * {scale}")
+              f"K1 {p}/{q} [{n_rows}, {t_in}]: max|kernel - plain| {err} > "
+              f"2e-4 * {scale}")
 
         # one strided float32 convolution of the same bank (cuDNN, TF32
         # off): a yardstick only, the port never calls it
@@ -237,8 +264,8 @@ def phase_kernels() -> dict:
             return F.conv1d(F.pad(planes, (pad_left, pad_right)), bank,
                             stride=q)
 
-        bound, bound_by = resample_bound_ms(N_CHAN, t_in, p, q, lpf)
-        nbytes = N_CHAN * (t_in + fir.polyphase_output_len(t_in, p, q)) * 8
+        bound, bound_by = resample_bound_ms(n_rows, t_in, p, q, lpf)
+        nbytes = n_rows * (t_in + fir.polyphase_output_len(t_in, p, q)) * 8
 
         def kernel():
             return cuda_fir.polyphase_resample_cuda(x, p, q, lpf)
@@ -253,10 +280,11 @@ def phase_kernels() -> dict:
         # which waits for the queue, so only the kernel and the library
         # call are held to a queue that stays ahead
         check(max(ahead, library_ahead) < 1,
-              f"K1 {p}/{q}: the host fell behind the device while timing "
+              f"K1 {p}/{q} [{n_rows}, {t_in}]: the host fell behind the "
+              f"device while timing "
               f"(queue shares {ahead:.3f}, {library_ahead:.3f})")
-        rows[(p, q, t_in)] = {
-            "geometry": f"{p}/{q} {taps} taps [{N_CHAN}, {t_in}]",
+        rows[(n_rows, p, q, t_in)] = {
+            "geometry": f"{p}/{q} {taps} taps [{n_rows}, {t_in}]",
             "instantiation": inst,
             "max_abs_err": err, "max_abs_plain": scale,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -265,7 +293,7 @@ def phase_kernels() -> dict:
             "host_queue_share": {"kernel": ahead, "library": library_ahead},
         }
         record({"phase": "kernels", "kernel": "polyphase_resample",
-                **rows[(p, q, t_in)]})
+                **rows[(n_rows, p, q, t_in)]})
     return rows
 
 
@@ -2229,6 +2257,97 @@ def ota_mt_sms(rig: BtsRig) -> dict:
     return {"text": deliver.text, "frames": len(rig.daemon_ms) - t0}
 
 
+def ota_sms_via_smqueue(rig: BtsRig) -> dict:
+    """tests/test_e2e_lur.py::test_over_the_air_sms_via_smqueue: the MS
+    submits an SMS to its own number over the air (CM Service for SMS,
+    a SAPI-3 link, CP-DATA in segmented I-frames → SIP MESSAGE); the
+    port's smqueue queues it, rewrites the sender through the HLR and
+    forwards it; the BTS takes the forwarded MESSAGE and pages the MS,
+    which answers and decodes the SMS-DELIVER off the air."""
+    from openbts_ttsou_tpu_torch.control.common import ServiceType
+    from openbts_ttsou_tpu_torch.gsm.l3 import common as l3c
+    from openbts_ttsou_tpu_torch.gsm.l3 import mm, rr
+    from openbts_ttsou_tpu_torch.gsm.lapdm import LAPDState
+    from openbts_ttsou_tpu_torch.gsm.transfer import FrameType
+    from openbts_ttsou_tpu_torch.sip.message import SIPMessage
+    from openbts_ttsou_tpu_torch.smqueue import SMq
+    from openbts_ttsou_tpu_torch.sms import messages as sms_m
+
+    app, daemon, t0 = rig.app, rig.daemon, len(rig.daemon_ms)
+    wall0 = time.perf_counter()
+    number, text = "5553000", "ping via smqueue"
+    app.control.hlr.add_user(BTS_IMSI, number)  # a self-addressed loop
+    ms = SimMS(rig)
+    ms.access(0x21, mm.CMServiceRequest(
+        service_type=4, identity=l3c.MobileIdentity.imsi(BTS_IMSI)))
+    check(ms.drive(120, until=lambda: ms.l2.state ==
+                   LAPDState.LinkEstablished), "MO-SMS link not up")
+    ms.l2_sms._send_u(FrameType.SABM, True, ms.l2_sms.c)
+    ms.l2_sms.state = LAPDState.AwaitingEstablish
+    ms.flush()
+    check(ms.drive(120, until=lambda: ms.l2_sms.state ==
+                   LAPDState.LinkEstablished), "SAPI-3 link not up")
+    tl = sms_m.TLSubmit(mr=1, dest=number, text=text)
+    rp = sms_m.RPData(reference=2, dest="170", tpdu=tl.encode(), mo=True)
+    cp = sms_m.CPData(ti=0, rpdu=rp.encode()).encode()
+    ms.send_l3(np.unpackbits(np.frombuffer(cp, np.uint8)), ms.l2_sms)
+    check(ms.drive(160, until=lambda: bool(rig.sip_out)),
+          "no SIP MESSAGE out")
+    mo_msg = SIPMessage.parse(rig.sip_out[-1])
+    check(mo_msg.method == "MESSAGE" and mo_msg.body == text
+          and mo_msg.uri_user("to") == number, f"MO MESSAGE {mo_msg.uri}")
+
+    # smqueue: queue, sender rewrite, forward
+    forwarded = []
+    smq = SMq(send=lambda to, rendered: forwarded.append((to, rendered)),
+              resolve=lambda u: u if u == number else None,
+              hlr=app.control.hlr)
+    check(smq.handle_sip_message(mo_msg).status == 200, "smqueue refused")
+    now = time.monotonic()
+    for k in range(8):
+        smq.process_queue(now + k + 1)
+        if forwarded:
+            break
+    check(bool(forwarded), "smqueue did not forward the MESSAGE")
+    to_user, rendered = forwarded[0]
+    mt_msg = SIPMessage.parse(rendered.encode())
+    check(to_user == number and mt_msg.body == text
+          and mt_msg.uri_user("from") == number,
+          f"forwarded to {to_user} from {mt_msg.uri_user('from')}")
+
+    # the BTS takes the forwarded MESSAGE and pages; the MS answers
+    app._on_message(mt_msg)
+    t = app.control.transactions.find_by_imsi(
+        BTS_IMSI, services=(ServiceType.MobileTerminatedSMS,))
+    check(t is not None and t.message == text, "no MT-SMS transaction")
+    ms2 = SimMS(rig)
+    page = ms2.ccch_message(daemon.fn, 240, 12, lambda m: isinstance(
+        m, rr.PagingRequestType1) and any(
+            i is not None and i.kind != 0 for i in (m.id1, m.id2)))
+    check(page is not None, "no page for the forwarded SMS")
+    page_id = next(i for i in (page.id1, page.id2)
+                   if i is not None and i.kind != 0)
+    ms2.access(0x2D, rr.PagingResponse(page_id))
+    deliver = []
+
+    def delivered():
+        while (l3 := ms2.l2_sms.read_high_side()) is not None:
+            if len(l3.bits) >= 16:
+                cpm = sms_m.parse_cp(np.packbits(l3.bits).tobytes())
+                if isinstance(cpm, sms_m.CPData):
+                    rpm = sms_m.parse_rp(cpm.rpdu)
+                    if isinstance(rpm, sms_m.RPData):
+                        deliver.append(sms_m.TLDeliver.parse(rpm.tpdu))
+        return bool(deliver)
+
+    check(ms2.drive(240, until=delivered), "forwarded SMS not delivered")
+    check(deliver[0].text == text and deliver[0].orig == number,
+          f"SMS-DELIVER {deliver[0].orig}: {deliver[0].text!r}")
+    return {"text": deliver[0].text, "orig": deliver[0].orig,
+            "frames": len(rig.daemon_ms) - t0,
+            "wall_s": time.perf_counter() - wall0}
+
+
 #: the channels' FEC calls (gsm/channels.py), each timed around its call:
 #: each ends in the `.cpu()` that brings its result back
 FEC_CALLS = ("xcch_encode_bursts", "xcch_decode_block", "rach_decode_bits",
@@ -2320,6 +2439,8 @@ def phase_bts() -> dict:
         call = ota_voice_call(rig, BTS_SPEECH, profile=profile_call_frames)
         rig.reclaim()
         sms = ota_mt_sms(rig)
+        rig.reclaim()
+        smq = ota_sms_via_smqueue(rig)
     finally:
         undo()
         rig.close()
@@ -2348,6 +2469,7 @@ def phase_bts() -> dict:
            "daemon_step_ms": stats_ms(rig.daemon_ms),
            "app_step_ms": stats_ms(rig.app_ms),
            "location_update": lur, "call": call, "mt_sms": sms,
+           "sms_via_smqueue": smq,
            "fec_call_ms": {k: stats_ms(v) for k, v in fec_ms.items()},
            "card_vs_cpu": {"downlink_bursts": len(card[0]),
                            "l3_messages": len(card[1])},
@@ -2413,11 +2535,360 @@ def phase_bts_entry_point() -> dict:
     return out
 
 
+# ---- phases 15-17: the sharded pipelines and the distributed runtime -------
+
+SHARDS = 4  # phase 15's mesh: (chan 2, time 2), all on cuda:0
+SHARD_FRAMES = 13
+SHARD_STEPS = {"uplink": 3, "duplex": 3, "decoded": 2}
+SHARD_SMALL_CHAN = 8  # phase 16: card against CPU
+
+
+def sharded_stream(steps: int) -> torch.Tensor:
+    """The uplink main path's stream (the bench recipe) over `steps`
+    steps of the (2, 2) mesh at the device rate, on the card."""
+    return to_device_rate(bench_symbols(steps * 2 * SHARD_FRAMES))
+
+
+def compare_rx(got, want, frames: slice, what: str) -> None:
+    """Detections, RACH flags, RSSI and timing exactly, soft bits within
+    5e-3, on the given frames."""
+    for name in ("detected", "is_rach", "rssi", "timing"):
+        check(torch.equal(getattr(got, name)[frames],
+                          getattr(want, name)[frames]),
+              f"{what}: {name} differs from the serial chain")
+    err = float((got.soft_bits[frames] - want.soft_bits[frames]).abs().max())
+    check(err <= 5e-3, f"{what}: soft bits differ by {err}")
+
+
+def decode_by_shards(res, fn0: int, mesh_shape: dict, frames: int,
+                     prev_soft, prev_valid, **kw):
+    """Phase 15's reference for a decoded step: `decode_block` on each
+    shard's carriers and frames of the step's RxResult (the shapes the
+    step decodes), time shard t's prelude the DECODE_PRELUDE frames
+    before its own (time shard 0's the previous step's tail,
+    `prev_soft`), joined over carriers and time as the step joins
+    them."""
+    from openbts_ttsou_tpu_torch.models.transceiver import (
+        DECODE_PRELUDE, DecodedBlocks, decode_block)
+
+    c_local = res.soft_bits.shape[1] // mesh_shape["chan"]
+    per_time = ("first_fn", "tch_end_fn", "tch_valid")
+    rows = []
+    for c in range(mesh_shape["chan"]):
+        cs = slice(c * c_local, (c + 1) * c_local)
+        decs = []
+        for t in range(mesh_shape["time"]):
+            lo = t * frames
+            part = type(res)(*(x[lo: lo + frames, cs] for x in res))
+            decs.append(decode_block(
+                part, fn0 + lo, frames,
+                prev_soft=(prev_soft[0][:, cs] if t == 0 else
+                           res.soft_bits[lo - DECODE_PRELUDE: lo, cs]),
+                prev_valid=(prev_valid if t == 0 else
+                            torch.ones((), dtype=torch.bool,
+                                       device=res.soft_bits.device)),
+                **kw))
+        rows.append([torch.cat([d[i].reshape(-1) if name in per_time
+                                else d[i] for d in decs])
+                     for i, name in enumerate(DecodedBlocks._fields)])
+    return DecodedBlocks(*(
+        rows[0][i] if name in per_time else torch.cat([r[i] for r in rows], 1)
+        for i, name in enumerate(DecodedBlocks._fields)))
+
+
+def phase_sharded() -> dict:
+    """Phase 15: the sharded steps on the card at 512 carriers, held on
+    interior frames against the serial chain over the same 26-frame
+    windows (`uplink_block` for the rx, `downlink_block` for the tx,
+    which must be bit-identical); the decoded steps' DecodedBlocks held
+    exactly against `decode_by_shards` on their own soft bits. K1's
+    launch shapes must be ones phase 2 held against the plain form."""
+    from openbts_ttsou_tpu_torch.models.transceiver import (
+        DECODE_PRELUDE, UplinkSpec, downlink_block, uplink_block)
+    from openbts_ttsou_tpu_torch.ops import cuda_fir, fir
+    from openbts_ttsou_tpu_torch.parallel import make_mesh
+    from openbts_ttsou_tpu_torch.parallel.sharded import (
+        ShardedPipelineSpec, sharded_duplex_pipeline,
+        sharded_uplink_pipeline, state_for_shards)
+    from openbts_ttsou_tpu_torch.trx.engine import TrxConfig
+
+    mesh = make_mesh(SHARDS, "cuda")
+    check(mesh.shape == {"chan": 2, "time": 2}
+          and all(s.device == torch.device("cuda", 0) for s in mesh.shards),
+          f"mesh {mesh.shape} on {[str(s.device) for s in mesh.shards]}")
+    n_time = mesh.shape["time"]
+    cfg = TrxConfig(n_chan=N_CHAN)
+    spec = ShardedPipelineSpec(n_chan_total=N_CHAN,
+                               frames_per_shard=SHARD_FRAMES)
+    wspec = UplinkSpec(frames=n_time * SHARD_FRAMES)  # the serial window
+    steps = max(SHARD_STEPS.values())
+    dev = sharded_stream(steps)
+    block = n_time * spec.block_in
+    windows = [dev[:, k * block: (k + 1) * block].contiguous()
+               for k in range(steps)]
+    rng = np.random.default_rng(15)
+    dl = []
+    for _ in range(SHARD_STEPS["duplex"]):
+        bits = rng.integers(0, 2, (wspec.frames, N_CHAN, 8, 148),
+                            dtype=np.uint8)
+        valid = np.zeros((wspec.frames, N_CHAN, 8), bool)
+        valid[:, :, 1] = True
+        dl.append(tuple(torch.from_numpy(a).cuda() for a in (
+            bits, valid, np.zeros(valid.shape, np.float32))))
+    state0 = new_transceiver(cfg, UplinkSpec()).state
+
+    # the serial chain over the same windows, its state carried
+    serial_rx, serial_tx, serial_thr = [], [], []
+    st = state0
+    for k in range(steps):
+        st, res = uplink_block(cfg, wspec, st, windows[k])
+        serial_rx.append(res)
+        serial_thr.append(st.energy_threshold.clone())
+    for k in range(SHARD_STEPS["duplex"]):
+        serial_tx.append(downlink_block(cfg, wspec, state0, *dl[k]))
+    up = sharded_uplink_pipeline(mesh, cfg, spec)
+    duplex = sharded_duplex_pipeline(mesh, cfg, spec)
+    decoded = sharded_uplink_pipeline(mesh, cfg, spec, mode="decoded",
+                                      xcch_tns=(0, 1, 6, 7),
+                                      tch_tns=(2, 3, 4, 5))
+    up(state_for_shards(state0, n_time), windows[0], 0)  # warm
+    torch.cuda.synchronize()
+
+    # the sharded steps: K1's launches counted over them alone, and the
+    # shapes of the CUDA tensors resampled (each one K1 launch) recorded
+    traffic, step_ms = {}, {k: [] for k in SHARD_STEPS}
+    outs = {k: [] for k in SHARD_STEPS}
+    resample = fir.polyphase_resample
+    k1_shapes = collections.Counter()
+
+    def resample_seen(x, p, q, lpf):
+        if x.is_cuda:
+            k1_shapes[(*x.shape, p, q)] += 1
+        return resample(x, p, q, lpf)
+
+    fir.polyphase_resample = resample_seen
+    try:
+        cuda_fir.polyphase_resample_cuda.launches = 0
+        st_sh = state_for_shards(state0, n_time)
+        for k in range(SHARD_STEPS["uplink"]):
+            mesh.reset_traffic()
+            t0 = time.perf_counter()
+            st_sh, res, clock = up(st_sh, windows[k], k * wspec.frames)
+            torch.cuda.synchronize()
+            step_ms["uplink"].append((time.perf_counter() - t0) * 1e3)
+            traffic["uplink"] = {k: list(v) for k, v in mesh.traffic.items()}
+            outs["uplink"].append((res, st_sh.energy_threshold.clone(),
+                                   int(clock)))
+        st_sh = state_for_shards(state0, n_time)
+        for k in range(SHARD_STEPS["duplex"]):
+            mesh.reset_traffic()
+            t0 = time.perf_counter()
+            st_sh, res, tx, clock = duplex(st_sh, windows[k], *dl[k],
+                                           k * wspec.frames)
+            torch.cuda.synchronize()
+            step_ms["duplex"].append((time.perf_counter() - t0) * 1e3)
+            traffic["duplex"] = {k: list(v) for k, v in mesh.traffic.items()}
+            outs["duplex"].append((res, tx))
+        st_sh = state_for_shards(state0, n_time)
+        prev = torch.zeros((1, DECODE_PRELUDE, N_CHAN, 8, 148), device="cuda")
+        pvalid = torch.zeros((), dtype=torch.bool, device="cuda")
+        for k in range(SHARD_STEPS["decoded"]):
+            t0 = time.perf_counter()
+            st_sh, res, _, dec = decoded(st_sh, windows[k], k * wspec.frames,
+                                         prev, pvalid)
+            torch.cuda.synchronize()
+            step_ms["decoded"].append((time.perf_counter() - t0) * 1e3)
+            outs["decoded"].append((res, dec, prev, pvalid))
+            prev = res.soft_bits[-DECODE_PRELUDE:][None]
+            pvalid = torch.ones((), dtype=torch.bool, device="cuda")
+    finally:
+        fir.polyphase_resample = resample
+    launches = {"polyphase_resample":
+                cuda_fir.polyphase_resample_cuda.launches}
+    held = {(rows, t_in, p, q) for rows, p, q, _, t_in in K1_SHAPES}
+    check(set(k1_shapes) <= held
+          and sum(k1_shapes.values()) == launches["polyphase_resample"],
+          f"sharded: K1 launched at {sorted(k1_shapes)} "
+          f"({launches} launches), not all held against the plain form "
+          f"in phase 2")
+    want_k1 = SHARDS * (SHARD_STEPS["uplink"] + 2 * SHARD_STEPS["duplex"]
+                        + SHARD_STEPS["decoded"])
+    check(launches["polyphase_resample"] == want_k1,
+          f"sharded: K1 launched {launches} times, expected {want_k1}")
+
+    interior = slice(1, wspec.frames - 1)
+    exact_all = True
+    for k, (res, thr, clock) in enumerate(outs["uplink"]):
+        compare_rx(res, serial_rx[k], interior, f"sharded uplink step {k}")
+        exact_all &= all(torch.equal(getattr(res, n), getattr(serial_rx[k], n))
+                         for n in ("detected", "rssi", "timing"))
+        check(torch.equal(thr[0], serial_thr[k]) and torch.equal(thr[0],
+                                                                 thr[1]),
+              f"sharded uplink step {k}: threshold {thr.unique().tolist()}")
+        check(clock == block, f"sharded uplink step {k}: clock {clock}")
+        check(int(res.detected.sum()) == N_CHAN * wspec.frames
+              and bool(res.detected[:, :, 1].all()),
+              f"sharded uplink step {k}: detections")
+    tx_identical = True
+    for k, (res, tx) in enumerate(outs["duplex"]):
+        compare_rx(res, serial_rx[k], interior, f"sharded duplex step {k}")
+        tx_identical &= torch.equal(tx, serial_tx[k])
+        err = float((tx - serial_tx[k]).abs().max())
+        check(tx_identical, f"sharded duplex step {k}: tx differs from "
+                            f"the serial downlink by up to {err}")
+    n_g = (DECODE_PRELUDE + SHARD_FRAMES) // 4
+    for k, (res, dec, prev_k, pvalid_k) in enumerate(outs["decoded"]):
+        compare_rx(res, serial_rx[k], interior, f"sharded decoded step {k}")
+        check(dec.bits.shape == (n_time * n_g, N_CHAN, 8, 184)
+              and dec.tch_speech.shape[1:] == (N_CHAN, 8, 260)
+              and dec.first_fn.shape == (n_time,),
+              f"sharded decoded step {k}: shapes")
+        want = decode_by_shards(res, k * wspec.frames, mesh.shape,
+                                SHARD_FRAMES, prev_k, pvalid_k,
+                                xcch_tns=(0, 1, 6, 7),
+                                tch_tns=(2, 3, 4, 5),
+                                rach_tns=cfg.rach_slots)
+        for name, a, b in zip(dec._fields, dec, want):
+            check(torch.equal(a, b), f"sharded decoded step {k}: {name} "
+                                     f"differs from decode_by_shards")
+    want_cp = 2 * (N_CHAN // 2) * spec.halo_in * 8
+    check(traffic["uplink"]["permute"] == [2, want_cp],
+          f"sharded: halo traffic {traffic['uplink']}")
+    check(traffic["duplex"]["permute"][1]
+          == want_cp + 2 * (N_CHAN // 2) * 65 * 8,
+          f"sharded: duplex halo traffic {traffic['duplex']}")
+
+    ms_step = statistics.median(step_ms["uplink"])
+    prof = device_profile(lambda: up(st_sh, windows[0], 0), ms_step)
+    out = {"phase": "sharded", "carriers": N_CHAN, "mesh": mesh.shape,
+           "k1_shapes": {str(list(k)): n for k, n in k1_shapes.items()},
+           "shard_devices": [str(s.device) for s in mesh.shards],
+           "frames_per_shard": SHARD_FRAMES, "steps": SHARD_STEPS,
+           "ms_per_step": step_ms,
+           "msamples_per_s_uplink": N_CHAN * block / ms_step / 1e3,
+           "launches": launches, "traffic_bytes_per_step": traffic,
+           "rx_equal_serial_on_all_frames": exact_all,
+           "tx_bit_identical": tx_identical, "profile": prof,
+           "card": torch.cuda.get_device_name(0)}
+    record(out)
+    return out
+
+
+def phase_sharded_card_vs_cpu() -> dict:
+    """Phase 16: the (2, 2) mesh at 8 carriers on the card and on the CPU
+    over 2 steps of the adversarial streams (RACH, energy without a
+    burst, DFE carriers): detections and integer state equal."""
+    from openbts_ttsou_tpu_torch.ops import fir
+    from openbts_ttsou_tpu_torch.parallel import make_mesh
+    from openbts_ttsou_tpu_torch.parallel.sharded import (
+        ShardedPipelineSpec, sharded_uplink_pipeline, state_for_shards)
+    from openbts_ttsou_tpu_torch.trx.engine import TrxConfig
+
+    c, n_time = SHARD_SMALL_CHAN, 2
+    cfg = TrxConfig(n_chan=c, max_toa=8)
+    spec = ShardedPipelineSpec(n_chan_total=c, frames_per_shard=SHARD_FRAMES)
+    streams = adversarial_streams(np.random.default_rng(16), c,
+                                  n_time * SHARD_FRAMES, 2)
+    lpf = fir.resampler_lpf(96, 65, 651)
+    run = {}
+    for dev in ("cuda", "cpu"):
+        mesh = make_mesh(SHARDS, dev)
+        step = sharded_uplink_pipeline(mesh, cfg, spec)
+        st4 = adversarial_state(TrxConfig(n_chan=4), dev)
+        st = st4._replace(**{
+            name: torch.cat([x, x]) for name, x in st4._asdict().items()
+            if name not in ("fn",)})
+        st_sh = state_for_shards(st, n_time)
+        run[dev] = []
+        for k, sym in enumerate(streams):
+            x = fir.polyphase_resample(torch.from_numpy(sym), 96, 65, lpf)
+            st_sh, res, _ = step(st_sh, x.to(dev), k * n_time * SHARD_FRAMES)
+            run[dev].append((st_sh, res))
+    n_det = n_rach = 0
+    for k, ((sg, g), (sh, h)) in enumerate(zip(run["cuda"], run["cpu"])):
+        for name in ("detected", "is_rach", "rssi", "timing"):
+            check(torch.equal(getattr(g, name).cpu(), getattr(h, name)),
+                  f"sharded step {k}: {name} differs between card and CPU")
+        check_states(sg, sh, f"sharded step {k}")
+        n_det += int(h.detected.sum())
+        n_rach += int(h.is_rach.sum())
+    check(n_det > 0 and n_rach > 0, "phase 16 left detection or RACH "
+                                    "unexercised")
+    out = {"phase": "sharded_card_vs_cpu", "carriers": c, "steps": 2,
+           "mesh": {"chan": 2, "time": 2}, "detections": n_det,
+           "rach_detections": n_rach}
+    record(out)
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_module(args: list):
+    """`python -m <args>` from the repo's root, started."""
+    return (subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True), time.perf_counter())
+
+
+def finish_module(started, what: str, timeout: float = 300) -> dict:
+    """Wait for a `start_module` process (killed past `timeout`); its last
+    stdout line is its JSON result, which must say ok."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{what} ran past {timeout} s")
+    lines = out.strip().splitlines()
+    check(proc.returncode == 0 and lines,
+          f"{what} exited {proc.returncode}: {err[-2000:]}")
+    res = json.loads(lines[-1])
+    check(res.get("ok") is True, f"{what}: {res}")
+    res["process_s"] = time.perf_counter() - t0
+    return res
+
+
+def phase_distributed() -> dict:
+    """Phase 17: the distributed runtime on the card, two processes at
+    once: one worker rank at world size 1 over NCCL (two time shards on
+    cuda:0, the duplex step checked against the serial chain, the
+    mismatches summed by an NCCL all-reduce) and the dry run at 4 shards
+    on the card. With one rank the mesh's collectives stay in the
+    process, so NCCL covers the group's start and that one all-reduce;
+    its send/recv and all-gather between ranks need two cards."""
+    worker = start_module(
+        ["openbts_ttsou_tpu_torch.parallel.worker", "--world-size", "1",
+         "--rank", "0", "--init-method", f"tcp://127.0.0.1:{free_port()}",
+         "--shards-per-rank", "2", "--duplex", "--device", "cuda",
+         "--timeout", "120"])
+    dry = start_module(["openbts_ttsou_tpu_torch.parallel.dryrun",
+                        "--shards", "4"])
+    try:
+        worker = finish_module(worker, "parallel.worker")
+    finally:
+        dry = finish_module(dry, "parallel.dryrun")
+    check(worker["backend"] == "nccl" and worker["mismatches_all_ranks"] == 0,
+          f"worker: {worker}")
+    check(dry["device"].startswith("cuda"), f"dryrun ran on {dry['device']}")
+    out = {"phase": "distributed", "worker": worker, "dryrun": dry}
+    record(out)
+    return out
+
+
 def kernels_line(kern: dict, launches: dict) -> dict:
     """The `kernels` record: K1 at the uplink shape, every shape's times
     beside its bound, and its launches on each main path (uplink,
-    duplex, daemon), each counted from zero over that path's run."""
-    up = kern[K1_SHAPES[0][0], K1_SHAPES[0][1], K1_SHAPES[0][3]]
+    duplex, daemon, ..., sharded), each counted from zero over that
+    path's run."""
+    rows, p, q, _, t_in = K1_SHAPES[0]
+    up = kern[rows, p, q, t_in]
     keys = ("instantiation", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_share", "gbytes_per_s")
     by_path = {path: n["polyphase_resample"] for path, n in launches.items()}
@@ -2444,31 +2915,48 @@ def main() -> int:
               file=sys.stderr)
         return 2
     torch.manual_seed(0)
-    card = phase_card()
-    kern = phase_kernels()
+    t_start = time.perf_counter()
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    card = timed("card", phase_card)
+    kern = timed("kernels", phase_kernels)
     if "--kernels-only" in sys.argv[1:]:  # phases 1-2: build and time
         print(card, flush=True)
         return 0
-    main_path, trx, x = phase_main_path()
-    phase_profile(trx.cfg, trx.spec, trx, x, main_path["ms_per_block"])
+    main_path, trx, x = timed("main_path", phase_main_path)
+    timed("profile", phase_profile, trx.cfg, trx.spec, trx, x,
+          main_path["ms_per_block"])
     del trx, x
-    phase_card_vs_cpu()
-    duplex = phase_duplex()
-    daemon = phase_daemon()
-    phase_duplex_card_vs_cpu()
-    resident, uls, blocks = phase_resident()
-    uplink_decoded = phase_uplink_decoded(uls, blocks)
+    timed("card_vs_cpu", phase_card_vs_cpu)
+    duplex = timed("duplex", phase_duplex)
+    daemon = timed("daemon", phase_daemon)
+    timed("duplex_card_vs_cpu", phase_duplex_card_vs_cpu)
+    resident, uls, blocks = timed("resident", phase_resident)
+    uplink_decoded = timed("uplink_decoded", phase_uplink_decoded, uls,
+                           blocks)
     del uls, blocks
-    phase_resident_card_vs_cpu()
-    bus = phase_usrp_bus()
-    bts = phase_bts()
-    phase_bts_entry_point()
+    timed("resident_card_vs_cpu", phase_resident_card_vs_cpu)
+    bus = timed("usrp_bus", phase_usrp_bus)
+    bts = timed("bts", phase_bts)
+    timed("bts_entry_point", phase_bts_entry_point)
+    sharded = timed("sharded", phase_sharded)
+    timed("sharded_card_vs_cpu", phase_sharded_card_vs_cpu)
+    timed("distributed", phase_distributed)
+    record({"phase": "wall", "phase_s": phase_s,
+            "total_s": time.perf_counter() - t_start})
 
     launches = {"uplink": main_path["launches"],
                 "duplex": duplex["launches"], "daemon": daemon["launches"],
                 "resident": resident["launches"],
                 "uplink_decoded": uplink_decoded["launches"],
-                "usrp_bus": bus["launches"], "bts": bts["launches"]}
+                "usrp_bus": bus["launches"], "bts": bts["launches"],
+                "sharded": sharded["launches"]}
     print(json.dumps(kernels_line(kern, launches)), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

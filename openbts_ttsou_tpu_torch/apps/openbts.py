@@ -72,7 +72,8 @@ class BTSApp:
                 on_new_message=self._on_message)
         self.control = ControlLayer(
             self.bts, hlr=LocalHLR(),
-            sip_send=(self.sip.send if self.sip else (lambda d: None)))
+            sip_send=(self.sip.send if self.sip else (lambda d: None)),
+            sip_fifos=self.sip)
         self.parser = Parser(self)
 
         # beacon + channel set (OpenBTS.cpp:215-291)
@@ -306,6 +307,7 @@ class BTSApp:
                 pump.pump()
         if self.sip:
             self.sip.drive(timeout_ms=0)
+        self.control.dtmf_tick()
         self.control.page_tick()
         self.control.release_tick()
         # normal release: the MS closed its LAPDm (DISC) — reclaim the

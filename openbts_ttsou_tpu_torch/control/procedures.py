@@ -17,7 +17,9 @@ through `sip.SIPEngine` objects attached to transactions.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import dataclasses
+import time as systime
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -41,18 +43,34 @@ from openbts_ttsou_tpu_torch.utils.logger import get_logger
 log = get_logger("control")
 
 
+@dataclasses.dataclass
+class DtmfRelay:
+    """A Start DTMF whose SIP INFO awaits its answer (dtmf_tick)."""
+
+    t: TransactionEntry
+    channel: object
+    cseq: int
+    key: str
+    deadline: float  # time.monotonic()
+
+
 class ControlLayer:
     """The Control/ subsystem: shared state + procedure handlers."""
 
     def __init__(self, bts: BTSConfig, hlr: Optional[HLR] = None,
                  sip_send: Optional[Callable[[bytes], None]] = None,
                  sip_host: str = "127.0.0.1", sip_port: int = 5060,
-                 local_host: str = "127.0.0.1", local_port: int = 5062):
+                 local_host: str = "127.0.0.1", local_port: int = 5062,
+                 sip_fifos=None):
         self.bts = bts
         self.hlr = hlr or LocalHLR()
         self.transactions = TransactionTable()
         self.tmsis = TMSITable()
         self.sip_send = sip_send or (lambda data: None)
+        # the per-call inbound SIP FIFOs (a SIPInterface: add_call, take,
+        # fifo_size, remove_call) where the DTMF relay finds its INFO's
+        # answer; None: nothing can answer, so every relay fails
+        self.sip_fifos = sip_fifos
         self.sip_host = sip_host
         self.sip_port = sip_port
         self.local_host = local_host
@@ -62,6 +80,10 @@ class ControlLayer:
         # channels released by a procedure but still draining queued
         # downlink LAPDm frames (see _release_channel)
         self.pending_release: Dict[int, object] = {}
+        # Start DTMFs waiting for their INFO's answer, oldest first
+        self.pending_dtmf: List[DtmfRelay] = []
+        # call IDs whose SIP FIFO a relay opened (closed when idle)
+        self._relay_fifos: set = set()
 
     def _new_engine(self, username: str) -> SIPEngine:
         return SIPEngine(username, self.local_host, self.local_port,
@@ -177,11 +199,8 @@ class ControlLayer:
             # until the link drains, bounded by a T3111-style deadline
             # (GSM 04.08 11.1.2: the post-release channel-deactivation
             # guard) so a vanished MS cannot pin the channel.
-            depth = channel.tx_depth() if hasattr(channel, "tx_depth") \
-                else -1
-            self.pending_release[id(channel)] = (channel,
-                                                 self.bts.clock.fn(),
-                                                 depth)
+            self.pending_release[id(channel)] = (
+                channel, self.bts.clock.fn(), channel.tx_progress())
             return
         self._hard_release(channel)
 
@@ -199,18 +218,19 @@ class ControlLayer:
         t3111_frames = int(
             self.bts.config.get_int("GSM.Timer.T3111", 2000) / 4.615)
         now_fn = self.bts.clock.fn()
-        for key, (ch, fn0, depth0) in list(self.pending_release.items()):
+        for key, (ch, fn0, acked0) in list(self.pending_release.items()):
             if ch.tx_drained() or not ch.l1.active:
                 del self.pending_release[key]
                 self._hard_release(ch)
                 continue
             # the deadline bounds a VANISHED MS (no acks), not a live
-            # one draining at SDCCH pace: any queue progress since the
-            # last tick restarts T3111 — LAPDm's own N200·T200 gives up
-            # on a truly dead link independently
-            depth = ch.tx_depth() if hasattr(ch, "tx_depth") else -1
-            if depth != depth0:
-                self.pending_release[key] = (ch, now_fn, depth)
+            # one draining at SDCCH pace: an acknowledgement since the
+            # last tick restarts T3111; a T200 retransmission does not,
+            # so a silent MS is cut at T3111, before LAPDm's own
+            # N200·T200 gives up on the link
+            acked = ch.tx_progress()
+            if acked != acked0:
+                self.pending_release[key] = (ch, now_fn, acked)
             elif fn_delta(now_fn, fn0) > t3111_frames:
                 del self.pending_release[key]
                 self._hard_release(ch)
@@ -507,18 +527,72 @@ class ControlLayer:
             t.voice = VoicePump(channel, t.sip)
 
     def start_dtmf(self, channel, msg: cc.StartDTMF):
-        """DTMF key press → SIP INFO + L3 ack (CallControl DTMF via
-        SIP INFO)."""
+        """DTMF key press → SIP INFO (CallControl.cpp:332). The answer is
+        awaited by dtmf_tick, not here: the service loop must not block
+        on the proxy. A relay that cannot start is rejected at once."""
         t = self._transaction_for(channel)
-        if t is not None and t.sip is not None:
-            t.sip.send_dtmf_info(msg.key)
-        # GSM 04.08 9.3.25 Start DTMF Acknowledge (MTI 0x32)
-        # downlink TI flag: flipped relative to the ORIGINATOR of the
-        # transaction (GSM 04.07 11.2.3.1.3) — 1 for MS-originated,
-        # 0 for network-originated; t.ti_flag records exactly that
-        ack = cc.StartDTMFAck(msg.key)
-        ack.ti = ((t.ti_flag if t else 1) << 3) | (t.ti_value if t else 0)
-        channel.send(L3Frame(ack.encode(), Primitive.DATA))
+        sip = t.sip if t is not None else None
+        cseq = None
+        if sip is not None and sip.call_id is not None and \
+                self.sip_fifos is not None:
+            if self.sip_fifos.add_call(sip.call_id):
+                self._relay_fifos.add(sip.call_id)
+            cseq = sip.send_dtmf_info(msg.key)
+            if cseq is None:
+                self._close_relay_fifo(sip.call_id)
+        if cseq is None:
+            self._answer_dtmf(channel, t, None)
+            return
+        timeout_s = self.bts.config.get_int("SIP.Timer.A", 2000) / 1e3
+        self.pending_dtmf.append(DtmfRelay(
+            t, channel, cseq, msg.key, systime.monotonic() + timeout_s))
+
+    def dtmf_tick(self) -> None:
+        """Settle the pending DTMF relays (called from the BTS service
+        loop after the SIP socket is drained): Start DTMF Acknowledge
+        when a 200 to the INFO is in the call's FIFO, Start DTMF Reject
+        on another final answer or once SIP.Timer.A has passed. The
+        call's other messages stay in its FIFO. A relay whose
+        transaction has gone is dropped unanswered."""
+        now = systime.monotonic()
+        for r in list(self.pending_dtmf):
+            sip, ok = r.t.sip, None
+            if self.transactions.find(r.t.id) is not None:
+                answer = self.sip_fifos.take(
+                    sip.call_id,
+                    lambda m: sip.dtmf_answer(m, r.cseq) is not None)
+                if answer is not None:
+                    ok = sip.dtmf_answer(answer, r.cseq)
+                elif now < r.deadline:
+                    continue
+                else:
+                    ok = False
+            self.pending_dtmf.remove(r)
+            self._close_relay_fifo(sip.call_id)
+            if ok is not None:
+                self._answer_dtmf(r.channel, r.t, r.key if ok else None)
+
+    def _close_relay_fifo(self, call_id: str) -> None:
+        """Close a call FIFO that a relay opened, once no relay of the
+        call is pending and nothing else waits in it."""
+        if call_id in self._relay_fifos and \
+                self.sip_fifos.fifo_size(call_id) == 0 and not any(
+                    r.t.sip.call_id == call_id for r in self.pending_dtmf):
+            self._relay_fifos.discard(call_id)
+            self.sip_fifos.remove_call(call_id)
+
+    def _answer_dtmf(self, channel, t: Optional[TransactionEntry],
+                     key: Optional[str]) -> None:
+        """GSM 04.08 9.3.25 Start DTMF Acknowledge (MTI 0x36) with the
+        relayed key, or, for key None, 9.3.26 Start DTMF Reject (0x37,
+        cause 0x3f). Downlink TI flag: flipped relative to the
+        ORIGINATOR of the transaction (GSM 04.07 11.2.3.1.3) — 1 for
+        MS-originated, 0 for network-originated; t.ti_flag records
+        exactly that."""
+        out = cc.StartDTMFAck(key) if key is not None else \
+            cc.StartDTMFReject()
+        out.ti = ((t.ti_flag if t else 1) << 3) | (t.ti_value if t else 0)
+        channel.send(L3Frame(out.encode(), Primitive.DATA))
 
     def stop_dtmf(self, channel, msg: cc.StopDTMF):
         t = self._transaction_for(channel)

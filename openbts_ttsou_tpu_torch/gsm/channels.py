@@ -618,6 +618,11 @@ class LogicalChannel:
         L2LAPDm.tx_depth)."""
         return sum(l2.tx_depth() for l2 in self.l2.values())
 
+    def tx_progress(self) -> int:
+        """Acknowledged downlink progress across SAPs, a counter that
+        only grows (see L2LAPDm.tx_progress)."""
+        return sum(l2.tx_progress() for l2 in self.l2.values())
+
     def reset(self) -> None:
         """Hard-release all LAPDm entities (the HARDRELEASE primitive,
         GSMTransfer.h:72) so the channel can be reallocated cleanly."""

@@ -420,6 +420,27 @@ class StartDTMFAck(CCMessage):
 
 
 @register
+class StartDTMFReject(CCMessage):
+    """GSM 04.08 9.3.26 Start DTMF Reject (downlink): cause LV, default
+    0x3f "service or option not available" (L3StartDTMFReject; the
+    reference sends it when the SIP INFO relay fails,
+    CallControl.cpp:332). 0x37: GSM 04.08 Table 10.3
+    (GSML3CCMessages.h)."""
+
+    MTI = 0x37
+
+    def __init__(self, cause: Cause | None = None):
+        super().__init__()
+        self.cause = cause or Cause(0x3F)
+
+    def write_body(self, w: BitWriter) -> None:
+        self.cause.write_lv(w)
+
+    def parse_body(self, r: BitReader) -> None:
+        self.cause = Cause.parse_lv(r)
+
+
+@register
 class StopDTMFAck(CCMessage):
     """GSM 04.08 9.3.29. 0x32: GSM 04.08 Table 10.3 (GSML3CCMessages.h)."""
 

@@ -72,6 +72,8 @@ class L2LAPDm:
         self.va = 0  # ack counter
         self.vr = 0  # receive counter
         self.rc = 0  # retransmission counter
+        # acknowledged downlink progress, never reset (see tx_progress)
+        self.acked = 0
         self.establishment_in_progress = False
         self.contention_check = 0
         self.recv_buffer = np.zeros(0, np.uint8)
@@ -101,12 +103,21 @@ class L2LAPDm:
 
     def tx_depth(self) -> int:
         """Outstanding downlink work: queued segments + the open
-        unacked window + frames awaiting L1. Decreases exactly when
-        the peer acknowledges progress — Control's deferred release
-        uses this to distinguish a live-but-slow MS (depth falling)
-        from a vanished one (depth frozen)."""
+        unacked window + frames awaiting L1. It is not a progress
+        measure: a T200 retransmission re-enqueues the outstanding
+        I-frame, which then counts both in the window and in the L1
+        queue until L1 takes it; `tx_progress` counts acknowledged
+        progress only."""
         return (len(self._pending_segments)
                 + ((self.vs - self.va) % 8) + len(self._l1_out))
+
+    def tx_progress(self) -> int:
+        """A counter that moves only when the peer acknowledges: V(A)
+        advanced, or a queued segment was taken into the (k=1) window.
+        Retransmissions leave it alone, so Control's deferred release
+        tells a live-but-slow MS (counter moving) from a vanished one
+        (counter frozen)."""
+        return self.acked
 
     def read_high_side(self) -> Optional[L3Frame]:
         return self.l3_out.popleft() if self.l3_out else None
@@ -200,6 +211,7 @@ class L2LAPDm:
         if not self._pending_segments:
             return
         seg, m = self._pending_segments.popleft()
+        self.acked += 1
         ctl = L2Control(ControlFormat.I, nr=self.vr, ns=self.vs, pf=0)
         hdr = self._header(ctl, L2Length(len(seg) // 8, m))
         f = L2Frame.from_header(hdr, seg)
@@ -379,6 +391,7 @@ class L2LAPDm:
     # ------------------------------------------------------------------
     def _process_ack(self, nr: int) -> None:
         """cpp:189-204 + window pump."""
+        self.acked += (nr - self.va) % 8
         self.va = nr
         if self.va == self.vs:
             self.rc = 0

@@ -10,7 +10,10 @@ MOD/MTD BYE clearing; RTP via `sip.rtp`.
 
 Transport is injected (a `send(bytes)` callable) and inbound messages
 are delivered by the SIPInterface demux — event-driven like the rest of
-this stack, so it is testable without real sockets.
+this stack, so it is testable without real sockets. The reference's
+one blocking wait, the DTMF relay's INFO (sendINFOAndWaitForOK), is
+split in two: `send_dtmf_info` sends the INFO and `dtmf_answer` reads a
+later message of the call; Control keeps the wait.
 """
 
 from __future__ import annotations
@@ -177,9 +180,11 @@ class SIPEngine:
         self.state = SIPState.MessageSubmit
         return self.state
 
-    def send_dtmf_info(self, key: str, duration_ms: int = 250) -> None:
-        """In-call DTMF via SIP INFO (the reference relays StartDTMF as
-        INFO application/dtmf-relay; CallControl.cpp DTMF path)."""
+    def send_dtmf_info(self, key: str,
+                       duration_ms: int = 250) -> Optional[int]:
+        """In-call DTMF via SIP INFO application/dtmf-relay (the send
+        half of SIPEngine::sendINFOAndWaitForOK). Returns the INFO's
+        CSeq, or None when the INFO could not be sent."""
         body = f"Signal={key}\r\nDuration={duration_ms}\r\n"
         m = make_request("INFO", self.remote_user or self.username,
                          self.username, self.proxy_host, self.proxy_port,
@@ -187,7 +192,21 @@ class SIPEngine:
                          call_id=self.call_id, cseq=self._next_cseq(),
                          from_tag=self.from_tag, body=body,
                          content_type="application/dtmf-relay")
-        self._transmit(m)
+        try:
+            self._transmit(m)
+        except OSError:
+            return None
+        return self.cseq
+
+    @staticmethod
+    def dtmf_answer(msg: SIPMessage, cseq: int) -> Optional[bool]:
+        """What `msg` says of the INFO sent with `cseq`: None when it is
+        not a final answer to it, True for a 200, False for any other
+        final status (a failed relay)."""
+        if msg.is_request or msg.status < 200 or \
+                msg.cseq() != (cseq, "INFO"):
+            return None
+        return msg.status == 200
 
     def mtsms_send_ok(self, message: SIPMessage) -> None:
         self._send(make_response(message, 200, "OK", new_tag()).render())

@@ -31,9 +31,13 @@ class SIPInterface:
     def send(self, data: bytes) -> None:
         self.sock.send(data)
 
-    def add_call(self, call_id: str) -> None:
+    def add_call(self, call_id: str) -> bool:
+        """Open a call's FIFO; True when it was not open yet."""
         with self._lock:
-            self._fifos.setdefault(call_id, collections.deque())
+            if call_id in self._fifos:
+                return False
+            self._fifos[call_id] = collections.deque()
+            return True
 
     def remove_call(self, call_id: str) -> None:
         with self._lock:
@@ -48,6 +52,18 @@ class SIPInterface:
         with self._lock:
             q = self._fifos.get(call_id)
             return q.popleft() if q else None
+
+    def take(self, call_id: str,
+             match: Callable[[SIPMessage], bool]) -> Optional[SIPMessage]:
+        """Remove and return the first message of a call for which
+        `match` holds; the call's other messages stay queued in order."""
+        with self._lock:
+            q = self._fifos.get(call_id)
+            for i, msg in enumerate(q or ()):
+                if match(msg):
+                    del q[i]
+                    return msg
+            return None
 
     def drive(self, timeout_ms: int = 0) -> int:
         """Read and demux pending datagrams

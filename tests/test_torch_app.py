@@ -426,8 +426,9 @@ def test_command_line_defaults_to_cuda():
 
 
 def test_bts_stack_imports_no_jax():
-    """The new subpackages import torch and numpy, never jax or the JAX
-    package."""
+    """The port's subpackages import torch and numpy, never jax or the
+    JAX package: the BTS stack, the sharded pipelines and their entry
+    points, smqueue and the utilities."""
     mods = ["openbts_ttsou_tpu_torch.apps.openbts",
             "openbts_ttsou_tpu_torch.cli",
             "openbts_ttsou_tpu_torch.control.procedures",
@@ -441,7 +442,19 @@ def test_bts_stack_imports_no_jax():
             "openbts_ttsou_tpu_torch.gsm.l3",
             "openbts_ttsou_tpu_torch.gsm.gsm610",
             "openbts_ttsou_tpu_torch.utils.gsmtap",
-            "openbts_ttsou_tpu_torch.utils.logger"]
+            "openbts_ttsou_tpu_torch.utils.logger",
+            "openbts_ttsou_tpu_torch.utils.f16",
+            "openbts_ttsou_tpu_torch.utils.profiling",
+            "openbts_ttsou_tpu_torch.parallel",
+            "openbts_ttsou_tpu_torch.parallel.mesh",
+            "openbts_ttsou_tpu_torch.parallel.halo",
+            "openbts_ttsou_tpu_torch.parallel.sharded",
+            "openbts_ttsou_tpu_torch.parallel.distributed",
+            "openbts_ttsou_tpu_torch.parallel.dryrun",
+            "openbts_ttsou_tpu_torch.parallel.worker",
+            "openbts_ttsou_tpu_torch.smqueue",
+            "openbts_ttsou_tpu_torch.smqueue.queue",
+            "openbts_ttsou_tpu_torch.smqueue.__main__"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -464,10 +477,12 @@ CC_TYPES = {"Alerting": 0x01, "CallProceeding": 0x02, "Progress": 0x03,
             "Hold": 0x18, "HoldReject": 0x1A, "Disconnect": 0x25,
             "ReleaseComplete": 0x2A, "Release": 0x2D, "StopDTMF": 0x31,
             "StopDTMFAck": 0x32, "StartDTMF": 0x35, "StartDTMFAck": 0x36,
-            "CCStatus": 0x3D}
-# the three the JAX package gets wrong and keeps (ROADMAP Queue 3)
+            "StartDTMFReject": 0x37, "CCStatus": 0x3D}
+# the three the JAX package gets wrong and keeps, and the one it lacks
+# (ROADMAP Queue 3)
 JAX_CC_FAULTS = {"HoldReject": 0x19, "StartDTMFAck": 0x32,
                  "StopDTMFAck": 0x33}
+JAX_CC_MISSING = {"StartDTMFReject"}
 
 
 def cc_classes(codec_module):
@@ -489,7 +504,7 @@ def test_cc_message_types_follow_gsm_0408(name, mti):
 
 def test_each_cc_code_names_one_class():
     classes = cc_classes(pcodec)
-    assert set(classes) == set(CC_TYPES)  # StartDTMFReject (0x37) not yet
+    assert set(classes) == set(CC_TYPES)
     codes = [cls.MTI for cls in classes.values()]
     assert len(codes) == len(set(codes))
     with pytest.raises(ValueError, match="HoldReject"):
@@ -503,7 +518,9 @@ def test_jax_package_keeps_its_cc_types():
     for name, mti in JAX_CC_FAULTS.items():
         assert classes[name].MTI == mti
     for name, mti in CC_TYPES.items():
-        if name not in JAX_CC_FAULTS:
+        if name in JAX_CC_MISSING:
+            assert name not in classes
+        elif name not in JAX_CC_FAULTS:
             assert classes[name].MTI == mti
 
 
@@ -531,3 +548,277 @@ def test_l3_encodes_as_jax(name, key):
     pmsg = pcls()
     np.testing.assert_array_equal(pmsg.encode(), jmsg.encode())
     assert type(parse_l3(pmsg.encode())) is pcls
+
+
+# ---- the DTMF relay: Start DTMF Acknowledge only when the INFO is answered
+
+class _Channel:
+    """A dedicated channel that records what Control sends down it."""
+
+    def __init__(self):
+        self.l1 = type("L1", (), {"tn": 1, "subchannel": 0})()
+        self.sent = []
+
+    def send(self, l3, sapi=0):
+        self.sent.append((l3, sapi))
+
+    def open(self, fn=0):
+        pass
+
+
+class _Proxy:
+    """A SIP proxy on a UDP socket beside a real SIPInterface: it reads
+    what the BTS sends and answers only when told to."""
+
+    def __init__(self, port):
+        import socket
+
+        from openbts_ttsou_tpu_torch.sip.interface import SIPInterface
+
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.sock.bind(("127.0.0.1", port))
+        self.sock.settimeout(2.0)
+        self.iface = SIPInterface(local_port=port + 1, proxy_port=port)
+
+    def recv(self):
+        from openbts_ttsou_tpu_torch.sip.message import SIPMessage
+
+        return SIPMessage.parse(self.sock.recvfrom(65536)[0])
+
+    def send(self, msg):
+        self.sock.sendto(msg.render(), ("127.0.0.1", self.iface.local_port))
+
+    def close(self):
+        self.iface.sock.close()
+        self.sock.close()
+
+
+@pytest.mark.parametrize("answer", [200, 486, "silence", "no reader"])
+def test_start_dtmf_acks_only_a_relayed_key(answer):
+    """CallControl.cpp:332: the key goes out as SIP INFO; a 200 to it
+    gets Start DTMF Acknowledge (0x36) with the key, anything else (an
+    error, silence past SIP.Timer.A, no way to hear an answer) Start
+    DTMF Reject (0x37, cause 0x3f). Control does not wait in start_dtmf:
+    dtmf_tick settles the relay from the call's SIP FIFO, and leaves
+    the call's other messages there."""
+    from openbts_ttsou_tpu_torch.control.procedures import ControlLayer
+    from openbts_ttsou_tpu_torch.gsm.btsconfig import BTSConfig
+    from openbts_ttsou_tpu_torch.gsm.l3 import common, mm
+    from openbts_ttsou_tpu_torch.sip.message import (make_request,
+                                                     make_response)
+
+    proxy = _Proxy(54010)
+    try:
+        iface = proxy.iface
+        ctl = ControlLayer(BTSConfig(), sip_send=iface.send,
+                           sip_fifos=None if answer == "no reader" else iface)
+        if answer == "silence":
+            ctl.bts.config.set("SIP.Timer.A", 300)
+        ch = _Channel()
+        ctl.bts.add_sdcch(ch)
+        ctl.bts.get_sdcch()
+        ctl.dispatch_l3(ch, mm.CMServiceRequest(
+            service_type=1,
+            identity=common.MobileIdentity.imsi("001010123456789")).encode())
+        ctl.dispatch_l3(ch, cc.Setup(cc.CalledPartyBCDNumber("100"))
+                        .encode())
+        assert proxy.recv().method == "INVITE"
+        ch.sent.clear()
+        t0 = time.monotonic()
+        ctl.dispatch_l3(ch, cc.StartDTMF("7").encode())
+        assert time.monotonic() - t0 < 0.1  # no wait for the proxy
+        if answer == "no reader":  # no INFO goes out, the key is refused
+            import socket
+
+            proxy.sock.settimeout(0.2)
+            with pytest.raises(socket.timeout):
+                proxy.recv()
+        else:
+            info = proxy.recv()
+            assert info.method == "INFO" and "Signal=7" in info.body
+            assert not ch.sent
+            relay, = ctl.pending_dtmf
+            timer_s = 0.3 if answer == "silence" else 2.0  # Timer A default
+            assert timer_s <= relay.deadline - t0 < timer_s + 0.1
+            assert iface.fifo_size(info.call_id()) == 0
+        if isinstance(answer, int):  # the proxy's BYE first: it stays queued
+            bye = make_request("BYE", "IMSI001010123456789", "100",
+                               "127.0.0.1", iface.local_port, "127.0.0.1",
+                               proxy.sock.getsockname()[1],
+                               call_id=info.call_id(), cseq=1, from_tag="p")
+            proxy.send(bye)
+            proxy.send(make_response(info, answer, "Reason"))
+        while not ch.sent and time.monotonic() - t0 < 3.0:
+            iface.drive(timeout_ms=10)
+            ctl.dtmf_tick()
+        (l3, sapi), = ch.sent
+        assert not ctl.pending_dtmf
+        out = parse_l3(l3.bits)
+        if answer == 200:
+            assert type(out) is cc.StartDTMFAck and out.key == "7"
+        else:
+            assert type(out) is cc.StartDTMFReject and out.cause.value == 0x3F
+            assert int("".join(map(str, l3.bits[8:16])), 2) == 0x37
+        assert out.ti >> 3 == 1 and sapi == 0  # toward the originating MS
+        if answer == "silence":
+            assert time.monotonic() - t0 >= 0.3
+        if isinstance(answer, int):
+            left = iface.read(info.call_id())
+            assert left is not None and left.method == "BYE"
+    finally:
+        proxy.close()
+
+
+def test_sip_interface_take_leaves_other_messages():
+    """SIPInterface.take, where the DTMF relay finds its answer: the
+    first message of the call that matches, the others left in order,
+    other calls untouched; add_call says whether it opened the FIFO."""
+    from openbts_ttsou_tpu_torch.sip.engine import SIPEngine
+    from openbts_ttsou_tpu_torch.sip.message import make_request, make_response
+
+    proxy = _Proxy(54012)
+    try:
+        iface = proxy.iface
+        assert iface.add_call("call-a") and not iface.add_call("call-a")
+        iface.add_call("call-b")
+        req = make_request("INFO", "100", "IMSI1", "127.0.0.1", 54012,
+                           "127.0.0.1", 54013, call_id="call-a", cseq=7,
+                           from_tag="x", body="Signal=1\r\n")
+        other = make_request("INFO", "100", "IMSI1", "127.0.0.1", 54012,
+                             "127.0.0.1", 54013, call_id="call-b", cseq=7,
+                             from_tag="y")
+        for m in (make_response(req, 100, "Trying"),
+                  make_response(other, 200, "OK"),
+                  make_response(req, 200, "OK")):
+            proxy.send(m)
+        deadline = time.monotonic() + 2.0
+        while iface.fifo_size("call-a") < 2 and time.monotonic() < deadline:
+            iface.drive(timeout_ms=10)
+
+        def answer(m):
+            return SIPEngine.dtmf_answer(m, 7) is not None
+
+        got = iface.take("call-a", answer)
+        assert got.status == 200 and got.cseq() == (7, "INFO")
+        assert SIPEngine.dtmf_answer(got, 7) is True
+        assert iface.take("call-a", answer) is None
+        left = iface.read("call-a")
+        assert left.status == 100 and SIPEngine.dtmf_answer(left, 7) is None
+        assert iface.fifo_size("call-b") == 1
+        assert SIPEngine.dtmf_answer(make_response(req, 486, "Busy"), 7) \
+            is False
+        assert SIPEngine.dtmf_answer(make_response(req, 200, "OK"), 8) is None
+    finally:
+        proxy.close()
+
+
+# ---- the deferred release counts acknowledged LAPDm progress only -----------
+
+class _LapdmChannel:
+    """An SDCCH reduced to its SAPI-0 LAPDm entity and an L1 that takes
+    downlink frames only when `take()` is called (the SDCCH sends one
+    block a multiframe), so a retransmission can wait in the L2 queue
+    when Control looks."""
+
+    def __init__(self):
+        from openbts_ttsou_tpu_torch.gsm.lapdm import L2LAPDm
+
+        self.l1 = type("L1", (), {"tn": 1, "subchannel": 0,
+                                  "active": True})()
+        self.l2 = {0: L2LAPDm(c=1, sapi=0)}
+        self.released = False
+
+    def send(self, l3, sapi=0):
+        self.l2[sapi].write_high_side(l3)
+
+    def take(self):
+        return self.l2[0].take_l1_out()
+
+    def tx_drained(self):
+        return self.l2[0].tx_drained()
+
+    def tx_depth(self):
+        return self.l2[0].tx_depth()
+
+    def tx_progress(self):
+        return self.l2[0].tx_progress()
+
+    def reset(self):
+        self.released = True
+
+
+def _released_channel():
+    from openbts_ttsou_tpu_torch.control.procedures import ControlLayer
+    from openbts_ttsou_tpu_torch.gsm.btsconfig import BTSConfig
+    from openbts_ttsou_tpu_torch.gsm.lapdm import LAPDState
+    from openbts_ttsou_tpu_torch.gsm.l3 import mm
+    from openbts_ttsou_tpu_torch.gsm.transfer import L3Frame, Primitive
+
+    fn = [1000]
+    bts = BTSConfig()
+    bts.clock = type("Clock", (), {"fn": lambda self: fn[0]})()
+    ctl = ControlLayer(bts)
+    ch = _LapdmChannel()
+    bts.add_sdcch(ch)
+    bts.get_sdcch()
+    l2 = ch.l2[0]
+    l2.state = LAPDState.LinkEstablished  # the MS's SABM was answered
+    ch.send(L3Frame(mm.LocationUpdatingAccept(bts.lai()).encode(),
+                    Primitive.DATA))
+    ctl._release_channel(ch)  # queues Channel Release behind the accept
+    assert ctl.pending_release and not ch.tx_drained()
+    return ctl, ch, l2, fn
+
+
+def test_retransmission_does_not_restart_t3111():
+    """A vanished MS: LAPDm re-enqueues the outstanding I-frame every
+    T200 and L1 takes it only at the next block, so Control sees the
+    queue's depth move; that is no acknowledgement, and the channel is
+    hard-released at T3111 (GSM.Timer.T3111, 2 s by default)."""
+    ctl, ch, l2, fn = _released_channel()
+    progress, depths = l2.tx_progress(), set()
+    t3111 = int(2000 / 4.615)
+    for k in range(1, 2 * t3111):
+        fn[0] += 1
+        l2.tick(int(k * 4.615))  # T200 runs on the frame clock
+        depths.add(ch.tx_depth())
+        ctl.release_tick()
+        if ch.released:
+            break
+        if k % 51 == 0:
+            ch.take()  # the SDCCH's downlink block
+    assert l2.rc >= 2 and len(depths) > 1  # retransmitted, depth moved
+    assert l2.tx_progress() == progress
+    assert ch.released and k == t3111 + 1
+
+
+def test_acknowledgement_restarts_t3111():
+    """A live MS whose acknowledgements come slower than the whole T3111
+    window but each within it keeps the channel until the queue drains:
+    an advance of V(A) restarts T3111."""
+    from openbts_ttsou_tpu_torch.gsm.transfer import (L2Control, L2Frame,
+                                                      L2Header, L2Length)
+    from openbts_ttsou_tpu_torch.gsm.lapdm import S_BITS, L2Address
+    from openbts_ttsou_tpu_torch.gsm.transfer import (ControlFormat,
+                                                      FrameFormat, FrameType)
+
+    ctl, ch, l2, fn = _released_channel()
+    t3111 = int(2000 / 4.615)
+    acks = 0
+    for k in range(1, 4 * t3111):
+        fn[0] += 1
+        l2.tick(int(k * 4.615))
+        ctl.release_tick()
+        if ch.released:
+            break
+        if k % (t3111 - 50) == 0:  # the MS's RR, inside each window
+            ch.take()
+            rr_frame = L2Frame.from_header(L2Header(
+                FrameFormat.B, L2Address(0, 0),
+                L2Control(ControlFormat.S, nr=l2.vs, pf=0,
+                          bits=S_BITS[FrameType.RR]), L2Length()))
+            before = l2.tx_progress()
+            l2.write_low_side(rr_frame)
+            acks += l2.tx_progress() > before
+    assert acks == 2 and ch.tx_drained() and ch.released
+    assert k > t3111 + 1  # it outlived one T3111 window

@@ -453,3 +453,85 @@ def test_bts_app_on_card(card):
     assert fec.training_sequences_on(cuda).is_cuda
     # 102 frames: FCCH 10, SCH 10, BCCH 2 blocks of 4 (no CCCH traffic)
     assert beacons["cuda"] == beacons["cpu"] and len(beacons["cpu"]) == 28
+
+
+def _sharded_stream(c, frames, seed):
+    """[c, frames·24000/13] device-rate noise with TSC-0 bursts on slot 1
+    and RACH bursts on slot 0 of every fourth frame."""
+    rng = np.random.default_rng(seed)
+    sym = (rng.standard_normal((c, frames * 1250, 2)) * 20.0
+           ).astype(np.float32).view(np.complex64)[..., 0]
+    for f in range(frames):
+        bits = rng.integers(0, 2, 148).astype(np.uint8)
+        bits[61:87] = C.TRAINING_SEQUENCE[0]
+        w = 9000.0 * gmsk.modulate_burst_np(bits[None], 1, guard_len=9)[0]
+        sym[:, f * 1250 + 157: f * 1250 + 157 + len(w)] += w
+        if f % 4 == 1:
+            rach = np.zeros(148, np.uint8)
+            rach[:8] = [0, 1, 0, 1, 0, 1, 0, 1]
+            rach[8:49] = C.RACH_SYNCH_SEQUENCE
+            rach[49:85] = rng.integers(0, 2, 36)
+            w = 9000.0 * gmsk.modulate_burst_np(rach[None], 1,
+                                                guard_len=9)[0]
+            sym[:, f * 1250: f * 1250 + len(w)] += w
+    return fir.polyphase_resample(torch.from_numpy(sym), 96, 65,
+                                  fir.resampler_lpf(96, 65, 651))
+
+
+@pytest.mark.cuda
+def test_sharded_uplink_card_matches_cpu(card):
+    """The sharded uplink with the state carry at a (2, 2) mesh, 2 steps,
+    on cuda:0 and on the CPU: detections, RACH flags, RSSI, timing and
+    the integer and bool state equal; K1 launched once a shard a step."""
+    from openbts_ttsou_tpu_torch import convert
+    from openbts_ttsou_tpu_torch.parallel import make_mesh
+    from openbts_ttsou_tpu_torch.parallel import sharded as sh
+
+    c, steps = 4, 2
+    cfg = eng.TrxConfig(n_chan=c, rach_slots=(0,))
+    spec = sh.ShardedPipelineSpec(n_chan_total=c, frames_per_shard=13)
+    x = _sharded_stream(c, steps * 26, 3)
+    block = 2 * spec.block_in
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mesh = make_mesh(4, dev)
+        step = sh.sharded_uplink_pipeline(mesh, cfg, spec)
+        ct = torch.full((c, 8), eng.ChanType.I, dtype=torch.int32)
+        ct[:, 0] = eng.ChanType.IV
+        st = sh.state_for_shards(eng.init_state(cfg, dev)._replace(
+            chan_type=ct.to(dev)), 2)
+        n0 = cuda_fir.polyphase_resample_cuda.launches
+        res = []
+        for k in range(steps):
+            st, r, _ = step(st, x[:, k * block: (k + 1) * block].to(dev),
+                            k * 26)
+            res.append(r)
+        if dev == "cuda":
+            assert cuda_fir.polyphase_resample_cuda.launches == n0 + 4 * steps
+        out[dev] = (convert.state_to_numpy(st), res)
+    (sg, rg), (sc, rc) = out["cuda"], out["cpu"]
+    for g, h in zip(rg, rc):
+        for name in ("detected", "is_rach", "rssi", "timing"):
+            assert torch.equal(getattr(g, name).cpu(), getattr(h, name)), name
+        assert bool(h.is_rach.any()) and int(h.detected.sum()) >= 4 * 26
+    for name, a in sg.items():
+        if a.dtype == bool or np.issubdtype(a.dtype, np.integer):
+            np.testing.assert_array_equal(a, sc[name], err_msg=name)
+
+
+@pytest.mark.cuda
+def test_exchange_halo_on_card_equals_full_stream(card):
+    """Halos exchanged between four time shards on cuda:0 equal slices of
+    the full stream, zeros at its edges."""
+    from openbts_ttsou_tpu_torch.parallel import halo, mesh
+
+    m = mesh.Mesh((2, 4), ["cuda"] * 8)
+    x = torch.randn(2, 3, 400, dtype=torch.complex64, device="cuda")
+    got = halo.exchange_halo(
+        m, {s: x[s.chan, :, s.time * 100: (s.time + 1) * 100]
+            for s in m.local}, 7, 5)
+    pad = torch.nn.functional.pad(x, (7, 5))
+    for s in m.local:
+        assert got[s].device.type == "cuda"
+        assert torch.equal(got[s], pad[s.chan, :, s.time * 100:
+                                       s.time * 100 + 112])
