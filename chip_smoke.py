@@ -92,7 +92,21 @@ prints no result):
     on the card, side by side; both exit 0 with their JSON `ok`. At
     world size 1 no mesh collective crosses ranks, so NCCL carries only
     the process group's start and one all-reduce; the mesh's NCCL
-    send/recv and all-gather wait for a machine with two cards.
+    send/recv and all-gather wait for a machine with two cards;
+18. the tools (`openbts_ttsou_tpu_torch/tools/`) on the card, each
+    through its `main([...])`: the wire soak (`daemon_soak`) at 1
+    carrier as `python -m`, at 8 and 128 in-process (replay bus, 26-frame
+    blocks, depth 2, full load, 10 timed blocks after 6 warm-up blocks,
+    no stale burst or underrun in the timed window) and at 8 over the
+    socket bus; `kernel_probe` (K1 against float64, no worse than its
+    plain form); `exact_bakeoff` at 128, 256 and 512 carriers (equal
+    results, the recommended boundary); `stage_bench`, `dfe_cost_probe`
+    and `encode_stage_probe` at 512; `scaling_bench` at 1, 2 and 4
+    shards of 64 carriers; `iq_tool` record and replay at 4 carriers ×
+    26 frames (every planted burst detected); `trx_ping` against `python
+    -m openbts_ttsou_tpu_torch.trx.daemon --device cuda` (every verb
+    answered); `transfer_probe`. Phase 2 times K1 through
+    `tools/kernel_bakeoff.py`.
 
 Earlier lines are JSON records (the last of them each phase's wall time,
 then the kernels line); the line before the last is the card's name and
@@ -114,17 +128,6 @@ import torch
 
 N_CHAN = 512
 BLOCKS = 3
-TIMED_REPS = 25
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-FP32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
-SLEEP_CYCLES = 100_000_000  # torch.cuda._sleep ahead of timed calls, ~50 ms
-#: K1's shapes on the main paths, (rows, p, q, taps, T) on [rows, T]: the
-#: uplink, its downlink stimulus, the duplex block's two calls, and a
-#: shard's two calls on phase 15's (chan 2, time 2) mesh
-K1_SHAPES = ((N_CHAN, 65, 96, 961, 24000), (N_CHAN, 96, 65, 651, 16250),
-             (N_CHAN, 65, 96, 961, 24192), (N_CHAN, 96, 65, 651, 16380),
-             (N_CHAN // 2, 65, 96, 961, 24192),
-             (N_CHAN // 2, 96, 65, 651, 16380))
 DAEMON_CHAN = 4  # carriers of the wire daemon (each binds 2 UDP ports)
 DAEMON_PORT = 52000  # its base port; the BTS side listens 50 above
 ROOT = Path(__file__).resolve().parent
@@ -141,33 +144,6 @@ def record(obj: dict) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
-
-
-def cuda_ms(fn, reps: int = TIMED_REPS) -> tuple[float, float]:
-    """Device time of fn(): the median of `reps` CUDA-event intervals,
-    each around one call, after 3 warm calls. The calls are queued behind
-    a ~50 ms device sleep, so the device runs them back to back and the
-    host's dispatch time stays out of the intervals; the second number is
-    the share of the sleep the host used to queue them (< 1: it kept
-    ahead)."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    s0, s1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    s0.record()
-    torch.cuda._sleep(SLEEP_CYCLES)
-    s1.record()
-    t0 = time.perf_counter()
-    for a, b in ev:
-        a.record()
-        fn()
-        b.record()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    return (statistics.median(a.elapsed_time(b) for a, b in ev),
-            host_ms / s0.elapsed_time(s1))
 
 
 # ---- phase 1 ---------------------------------------------------------------
@@ -202,98 +178,38 @@ def phase_card() -> str:
 
 # ---- phase 2 ---------------------------------------------------------------
 
-def resample_bound_ms(rows: int, t_in: int, p: int, q: int,
-                      lpf: np.ndarray) -> tuple[float, str]:
-    """Least time for K1's work on this card: each input read once and
-    each output written once at the data-sheet HBM rate, against the
-    float32 FMAs of the nonzero taps each output uses (2 FMAs a tap,
-    real and imaginary) at the data-sheet float32 rate."""
-    from openbts_ttsou_tpu_torch.ops import cuda_fir, fir
-
-    n_out = fir.polyphase_output_len(t_in, p, q)
-    taps, _ = cuda_fir.branch_table(p, q, lpf.tobytes())
-    nnz = (taps != 0).sum(1)  # per branch
-    per_out = nnz[np.arange(n_out) % p].sum()
-    flops = rows * per_out * 4.0
-    nbytes = rows * (t_in + n_out) * 8.0
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
 def phase_kernels() -> dict:
-    import torch.nn.functional as F
+    """Each K1 shape through `tools/kernel_bakeoff.py` (the kernel, its
+    plain form and one `F.conv1d`, device-timed), held to a compile-time
+    instantiation, the plain form's output within 2e-4 of its scale, and
+    a host that kept ahead of the device while timing."""
+    from openbts_ttsou_tpu_torch.tools.kernel_bakeoff import K1_SHAPES, bake
 
-    from openbts_ttsou_tpu_torch.ops import cuda_fir, fir
-
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
     for n_rows, p, q, taps, t_in in K1_SHAPES:
-        x = torch.randn((n_rows, t_in), dtype=torch.complex64, device="cuda",
-                        generator=gen)
-        lpf = fir.resampler_lpf(p, q, taps)
+        r = bake(n_rows, p, q, taps, t_in, gen)
+        what = f"K1 {p}/{q} [{n_rows}, {t_in}]"
         # every shape of the system runs a compile-time instantiation;
         # the runtime-width one must not take them quietly
-        inst = cuda_fir.instantiation(p, q, lpf)
-        check(inst != "runtime",
-              f"K1 {p}/{q} [{n_rows}, {t_in}]: runtime-width instantiation")
-        got = cuda_fir.polyphase_resample_cuda(x, p, q, lpf)
-        want = cuda_fir.polyphase_resample_plain(x, p, q, lpf)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
-              f"K1 {p}/{q} [{n_rows}, {t_in}]: shape or non-finite output")
-        check(err <= 2e-4 * scale,
-              f"K1 {p}/{q} [{n_rows}, {t_in}]: max|kernel - plain| {err} > "
-              f"2e-4 * {scale}")
-
-        # one strided float32 convolution of the same bank (cuDNN, TF32
-        # off): a yardstick only, the port never calls it
-        _, _, _, _, k_prime, pad_left = fir._polyphase_plan(p, q, taps)
-        n_out = fir.polyphase_output_len(t_in, p, q)
-        m_cycles = -(-n_out // p)
-        pad_right = max(0, (m_cycles - 1) * q + k_prime - pad_left - t_in)
-        bank = torch.from_numpy(
-            fir._polyphase_filter_bank(p, q, lpf)).cuda()  # [p, 1, K']
-        planes = torch.cat([x.real, x.imag])[:, None, :]
-
-        def library():
-            return F.conv1d(F.pad(planes, (pad_left, pad_right)), bank,
-                            stride=q)
-
-        bound, bound_by = resample_bound_ms(n_rows, t_in, p, q, lpf)
-        nbytes = n_rows * (t_in + fir.polyphase_output_len(t_in, p, q)) * 8
-
-        def kernel():
-            return cuda_fir.polyphase_resample_cuda(x, p, q, lpf)
-
-        def plain():
-            return cuda_fir.polyphase_resample_plain(x, p, q, lpf)
-
-        ms, ahead = cuda_ms(kernel)
-        plain_ms, _ = cuda_ms(plain)
-        library_ms, library_ahead = cuda_ms(library)
+        check(r["instantiation"] != "runtime",
+              f"{what}: runtime-width instantiation")
+        check(r["shape_ok"] and r["finite"],
+              f"{what}: shape or non-finite output")
+        check(r["max_abs_err"] <= 2e-4 * r["max_abs_plain"],
+              f"{what}: max|kernel - plain| {r['max_abs_err']} > "
+              f"2e-4 * {r['max_abs_plain']}")
         # the plain version copies its bank to the card on every call,
         # which waits for the queue, so only the kernel and the library
         # call are held to a queue that stays ahead
-        check(max(ahead, library_ahead) < 1,
-              f"K1 {p}/{q} [{n_rows}, {t_in}]: the host fell behind the "
-              f"device while timing "
-              f"(queue shares {ahead:.3f}, {library_ahead:.3f})")
-        rows[(n_rows, p, q, t_in)] = {
-            "geometry": f"{p}/{q} {taps} taps [{n_rows}, {t_in}]",
-            "instantiation": inst,
-            "max_abs_err": err, "max_abs_plain": scale,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound, "bound_by": bound_by,
-            "bound_share": bound / ms, "gbytes_per_s": nbytes / ms / 1e6,
-            "host_queue_share": {"kernel": ahead, "library": library_ahead},
-        }
-        record({"phase": "kernels", "kernel": "polyphase_resample",
-                **rows[(n_rows, p, q, t_in)]})
+        ahead = r["host_queue_share"]
+        check(max(ahead["kernel"], ahead["library"]) < 1,
+              f"{what}: the host fell behind the device while timing "
+              f"(queue shares {ahead['kernel']:.3f}, "
+              f"{ahead['library']:.3f})")
+        del r["shape_ok"], r["finite"]
+        rows[(n_rows, p, q, t_in)] = r
+        record({"phase": "kernels", "kernel": "polyphase_resample", **r})
     return rows
 
 
@@ -453,34 +369,21 @@ def phase_profile(cfg, spec, trx, x, ms_block: float) -> dict:
 
 
 def device_profile(fn, ms_block: float) -> dict:
-    """fn() once under torch.profiler: device busy time (the sum of
-    device-side events, kernels and copies, on one stream) against the
-    unprofiled wall time `ms_block`, the number of device-side events,
-    the ones that take the most time, and the host-side ops that take
-    the most host time (their self time, profiled)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """fn() once under torch.profiler (`tools/common.py` `profile_once`):
+    device busy time (the sum of device-side events, kernels and copies,
+    on one stream) against the unprofiled wall time `ms_block`, the
+    number of device-side events, the ones that take the most time, and
+    the host-side ops that take the most host time (their self time,
+    profiled)."""
+    from openbts_ttsou_tpu_torch.tools.common import profile_once
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    dev_events = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
-    top = sorted(dev_events, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:10]
-    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
-                  key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
-    check(busy_ms > 0, "the profiler saw no device time")
-    return {"device_busy_ms": busy_ms, "ms_per_block_unprofiled": ms_block,
-            "device_idle_share": 1 - busy_ms / ms_block,
-            "device_events": sum(e.count for e in dev_events),
-            "top": [{"name": e.key[:70], "count": e.count,
-                     "ms": e.self_device_time_total / 1e3} for e in top],
-            "host_top": [{"name": e.key[:70], "count": e.count,
-                          "ms": e.self_cpu_time_total / 1e3} for e in host]}
+    prof = profile_once(fn)
+    check(prof["busy_ms"] > 0, "the profiler saw no device time")
+    return {"device_busy_ms": prof["busy_ms"],
+            "ms_per_block_unprofiled": ms_block,
+            "device_idle_share": 1 - prof["busy_ms"] / ms_block,
+            "device_events": prof["device_events"],
+            "top": prof["top"], "host_top": prof["host_top"]}
 
 
 # ---- phase 5 ---------------------------------------------------------------
@@ -2610,6 +2513,7 @@ def phase_sharded() -> dict:
     from openbts_ttsou_tpu_torch.parallel.sharded import (
         ShardedPipelineSpec, sharded_duplex_pipeline,
         sharded_uplink_pipeline, state_for_shards)
+    from openbts_ttsou_tpu_torch.tools.kernel_bakeoff import K1_SHAPES
     from openbts_ttsou_tpu_torch.trx.engine import TrxConfig
 
     mesh = make_mesh(SHARDS, "cuda")
@@ -2882,11 +2786,250 @@ def phase_distributed() -> dict:
     return out
 
 
+# ---- phase 18: the tools ----------------------------------------------------
+
+TOOLS_PORT = DAEMON_PORT + 1000  # the in-process soaks (a 128-carrier one
+# binds 774 ports from here)
+TOOLS_SOAK_PROC_PORT = DAEMON_PORT + 2000  # the soak run as a process
+TOOLS_TRX_PORT = DAEMON_PORT + 2100  # the daemon trx_ping pings
+SOAK_BF, SOAK_WARMUP, SOAK_BLOCKS = 26, 6, 10
+SOAK_ROWS = (1, 8, 128)  # replay rows; the first runs as a process
+
+
+def soak_args(carriers: int, base: int, bus: str = "replay",
+              ul_slots: int = 7) -> list:
+    return ["--device", "cuda", "--carriers", str(carriers),
+            "--block-frames", str(SOAK_BF), "--depth", "2",
+            "--warmup", str(SOAK_WARMUP), "--blocks", str(SOAK_BLOCKS),
+            "--ul-slots", str(ul_slots), "--bus", bus,
+            "--base-port", str(base), "--timeout", "300"]
+
+
+def check_soak(r: dict, what: str) -> None:
+    """A soak row's record: the uplink flowed, K1 ran twice a block, and
+    a replay row's timed window neither dumped nor underran."""
+    need = SOAK_BF * r["carriers"] * r["ul_slots"] * (
+        SOAK_BLOCKS - 2 if r["bus"] == "replay" else SOAK_BLOCKS // 2)
+    check(r["uplink_datagrams"] >= need,
+          f"{what}: {r['uplink_datagrams']} uplink datagrams < {need}")
+    check(r["k1_launches"] == 2 * r["blocks_run"],
+          f"{what}: K1 launched {r['k1_launches']} times in "
+          f"{r['blocks_run']} blocks")
+    if r["bus"] == "replay":
+        check(r["stale_dumped"] == 0 and r["underruns"] == 0,
+              f"{what}: {r['stale_dumped']} stale, {r['underruns']} "
+              f"underruns in the timed window")
+    check(r["realtime"] == (r["ms_per_frame"] < r["air_ms_per_frame"]
+                            and r["stale_dumped"] == r["underruns"] == 0),
+          f"{what}: realtime flag")
+    check_card_fields(r, what)
+
+
+def run_tool(out: dict, name: str, tool, argv: list) -> dict:
+    """tool.main(argv), its seconds added to out["seconds"][name]."""
+    t0 = time.perf_counter()
+    rec = tool.main(argv)
+    out["seconds"][name] = (out["seconds"].get(name, 0.0)
+                            + time.perf_counter() - t0)
+    return rec
+
+
+def check_card_fields(r: dict, what: str) -> None:
+    check(r.get("device") == torch.cuda.get_device_name(0)
+          and bool(r.get("card")), f"{what}: card fields {r.get('card')}")
+
+
+def phase_tools() -> dict:
+    """Phase 18: the port's tools (`openbts_ttsou_tpu_torch/tools/`) on
+    the card, each through its `main([...])`, the 1-carrier soak as `python
+    -m`: the wire soak at 1, 8 and 128 carriers (replay bus, 26-frame
+    blocks, depth 2, full load; 10 timed blocks after 6 warm-up blocks,
+    which cover the daemon's clock lead growing from 20 to 26 frames) and
+    at 8 over the socket bus, the K1 probe, both exact schedules at 128,
+    256 and 512 carriers, the per-stage benches at 512, the mesh at 1, 2
+    and 4 shards of 64 carriers, an IQ capture recorded and replayed, a
+    control-plane ping of `python -m openbts_ttsou_tpu_torch.trx.daemon`
+    and the transfer probe. K1's launches are counted from zero over the
+    soaks and over the other tools apart (the probe's comparison
+    launches left out), and K1 is held against its plain form at every
+    shape they launched it at."""
+    from openbts_ttsou_tpu_torch.ops import cuda_fir, fir
+    from openbts_ttsou_tpu_torch.tools import (iq_tool, kernel_probe,
+                                               transfer_probe, trx_ping)
+
+    out = {"phase": "tools", "seconds": {}}
+    work = ROOT / "build" / "tools"
+    work.mkdir(parents=True, exist_ok=True)
+    daemon_log = open(work / "phase18_trx_daemon.log", "w")
+    daemon = subprocess.Popen(
+        [sys.executable, "-m", "openbts_ttsou_tpu_torch.trx.daemon",
+         "--device", "cuda", "--base-port", str(TOOLS_TRX_PORT)], cwd=ROOT,
+        stdout=daemon_log, stderr=subprocess.STDOUT)
+    try:
+        out["transfer_probe"] = run_tool(out, "transfer_probe",
+                                         transfer_probe, [])
+        check_card_fields(out["transfer_probe"], "transfer_probe")
+        probe = run_tool(out, "kernel_probe", kernel_probe, [])
+        check(probe["ok"], f"kernel_probe: {probe['rows']}")
+        out["kernel_probe"] = probe
+        capture = str(work / "phase18_capture.npz")
+        run_tool(out, "iq_tool", iq_tool,
+                 ["record", "--device", "cuda", "--out", capture,
+                  "--chans", "4", "--frames", "26"])
+        rep = run_tool(out, "iq_tool", iq_tool,
+                       ["replay", capture, "--device", "cuda"])
+        check(rep["hits"] == rep["planted"] > 0,
+              f"iq_tool: {rep['hits']} of {rep['planted']} bursts detected")
+        out["iq_tool"] = rep
+        # the daemon needs ~9 s to answer (torch import, the card)
+        end = time.perf_counter() + 120
+        ping_args = ["--device", "cuda", "--base-port", str(TOOLS_TRX_PORT),
+                     "--local-port", str(TOOLS_TRX_PORT + 101),
+                     "--timeout-ms", "500"]
+        while True:
+            check(daemon.poll() is None, "the trx daemon exited: " + (
+                work / "phase18_trx_daemon.log").read_text()[-2000:])
+            ping = run_tool(out, "trx_ping", trx_ping, ping_args)
+            if ping["answered"] == len(trx_ping.VERBS):
+                break
+            check(time.perf_counter() < end, f"trx_ping: {ping}")
+        check(all(v["kind"] == "RSP" and v["verb"] == verb
+                  and v["args"][0] == "0"
+                  for verb, v in ping["verbs"].items()), f"trx_ping: {ping}")
+        out["trx_ping"] = ping
+    finally:
+        daemon.terminate()
+        try:
+            daemon.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            daemon.kill()
+            daemon.wait()
+        daemon_log.close()
+
+    # K1's launch shapes on the soaks and the tools, held against the
+    # plain form at the end of the phase
+    resample = fir.polyphase_resample
+    k1_shapes = collections.Counter()
+
+    def resample_seen(x, p, q, lpf):
+        if x.is_cuda:
+            k1_shapes[(x.numel() // x.shape[-1], x.shape[-1], p, q,
+                       len(lpf))] += 1
+        return resample(x, p, q, lpf)
+
+    fir.polyphase_resample = resample_seen
+    try:
+        soak_k1 = tools_soaks(out)
+        soak_shapes = set(k1_shapes)
+        tools_k1 = tools_probes(out)
+    finally:
+        fir.polyphase_resample = resample
+    # the soak process's launches: 1 carrier at the in-process soaks'
+    # lengths
+    shapes = set(k1_shapes) | {(1, t, p, q, taps) for _, t, p, q, taps
+                               in soak_shapes}
+    out["k1_checked"] = check_k1_shapes(shapes)
+    out["launches"] = {"polyphase_resample": soak_k1}
+    out["tools_launches"] = {"polyphase_resample": tools_k1}
+    record(out)
+    return out
+
+
+def check_k1_shapes(shapes) -> dict:
+    """K1 against its plain form at each (rows, T, p, q, taps) given, on
+    random input, to 2e-4 of the output's scale (phase 2's bound)."""
+    from openbts_ttsou_tpu_torch.ops import cuda_fir, fir
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    errs = {}
+    for rows, t_in, p, q, taps in sorted(shapes):
+        x = torch.randn((rows, t_in), dtype=torch.complex64, device="cuda",
+                        generator=gen)
+        lpf = fir.resampler_lpf(p, q, taps)
+        got = cuda_fir.polyphase_resample_cuda(x, p, q, lpf)
+        want = cuda_fir.polyphase_resample_plain(x, p, q, lpf)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(got.shape == want.shape and err <= 2e-4 * scale,
+              f"K1 {p}/{q} [{rows}, {t_in}]: max|kernel - plain| {err} "
+              f"against {scale}")
+        errs[str([rows, t_in, p, q, taps])] = err
+    return errs
+
+
+def tools_soaks(out: dict) -> int:
+    """Phase 18's soaks; K1's launches over them, counted from zero."""
+    from openbts_ttsou_tpu_torch.ops import cuda_fir
+    from openbts_ttsou_tpu_torch.tools import daemon_soak
+
+    cuda_fir.polyphase_resample_cuda.launches = 0
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "openbts_ttsou_tpu_torch.tools.daemon_soak",
+         *soak_args(SOAK_ROWS[0], TOOLS_SOAK_PROC_PORT)], cwd=ROOT,
+        capture_output=True, text=True, timeout=400)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and bool(lines),
+          f"daemon_soak process exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    rows = [{**json.loads(lines[-1]), "process_s": time.perf_counter() - t0}]
+    out["seconds"]["daemon_soak_process"] = rows[0]["process_s"]
+    for n in SOAK_ROWS[1:]:
+        rows.append(run_tool(out, f"daemon_soak_{n}", daemon_soak,
+                             soak_args(n, TOOLS_PORT)))
+    rows.append(run_tool(out, "daemon_soak_socket_8", daemon_soak,
+                         soak_args(8, TOOLS_PORT, "socket", 3)))
+    for r in rows:
+        check_soak(r, f"soak {r['carriers']} carriers {r['bus']}")
+    # each in-process row also resampled its uplink bank once (stimulus)
+    soak_k1 = sum(r["k1_launches"] for r in rows)
+    check(cuda_fir.polyphase_resample_cuda.launches
+          == soak_k1 - rows[0]["k1_launches"] + len(rows) - 1,
+          f"soak: K1 launched {cuda_fir.polyphase_resample_cuda.launches} "
+          f"times in-process")
+    out["soak"] = rows
+    return soak_k1
+
+
+def tools_probes(out: dict) -> int:
+    """Phase 18's benches and probes; K1's launches over them, counted
+    from zero."""
+    from openbts_ttsou_tpu_torch.ops import cuda_fir
+    from openbts_ttsou_tpu_torch.tools import (dfe_cost_probe,
+                                               encode_stage_probe,
+                                               exact_bakeoff, scaling_bench,
+                                               stage_bench)
+
+    cuda_fir.polyphase_resample_cuda.launches = 0
+    bake = run_tool(out, "exact_bakeoff", exact_bakeoff,
+                    ["--device", "cuda", "--carriers", "128,256,512"])
+    check(bake["results_equal"], "exact_bakeoff: schedules differ")
+    out["exact_bakeoff"] = bake
+    for name, tool, args in (
+            ("stage_bench", stage_bench, ["--carriers", "512"]),
+            ("dfe_cost_probe", dfe_cost_probe, ["--carriers", "512"]),
+            ("encode_stage_probe", encode_stage_probe,
+             ["--carriers", "512"]),
+            ("scaling_bench", scaling_bench,
+             ["--shards", "1,2,4", "--chan-per-shard", "64"])):
+        out[name] = run_tool(out, name, tool, ["--device", "cuda", *args])
+    for name in ("exact_bakeoff", "stage_bench", "dfe_cost_probe",
+                 "encode_stage_probe", "scaling_bench"):
+        check_card_fields(out[name], name)
+    check(all(r["use_dfe_every_frame"] for r in out["dfe_cost_probe"]["rows"]),
+          "dfe_cost_probe: the DFE-on leg lost use_dfe")
+    tools_k1 = cuda_fir.polyphase_resample_cuda.launches
+    check(tools_k1 > 0, "the tools never launched K1")
+    return tools_k1
+
+
 def kernels_line(kern: dict, launches: dict) -> dict:
     """The `kernels` record: K1 at the uplink shape, every shape's times
     beside its bound, and its launches on each main path (uplink,
-    duplex, daemon, ..., sharded), each counted from zero over that
-    path's run."""
+    duplex, daemon, ..., sharded, soak, tools), each counted from zero
+    over that path's run."""
+    from openbts_ttsou_tpu_torch.tools.kernel_bakeoff import K1_SHAPES
+
     rows, p, q, _, t_in = K1_SHAPES[0]
     up = kern[rows, p, q, t_in]
     keys = ("instantiation", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -2948,6 +3091,7 @@ def main() -> int:
     sharded = timed("sharded", phase_sharded)
     timed("sharded_card_vs_cpu", phase_sharded_card_vs_cpu)
     timed("distributed", phase_distributed)
+    tools = timed("tools", phase_tools)
     record({"phase": "wall", "phase_s": phase_s,
             "total_s": time.perf_counter() - t_start})
 
@@ -2956,7 +3100,8 @@ def main() -> int:
                 "resident": resident["launches"],
                 "uplink_decoded": uplink_decoded["launches"],
                 "usrp_bus": bus["launches"], "bts": bts["launches"],
-                "sharded": sharded["launches"]}
+                "sharded": sharded["launches"], "soak": tools["launches"],
+                "tools": tools["tools_launches"]}
     print(json.dumps(kernels_line(kern, launches)), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,154 @@
+"""K1, the polyphase resampler, three ways at every shape the main paths
+give it: the hand-written CUDA kernel, its plain PyTorch form
+(`cuda_fir.polyphase_resample_plain`) and one float32 `F.conv1d` of the
+same filter bank with TF32 off (a yardstick the port never calls).
+
+For each shape: device ms of each path (CUDA events, the calls queued
+behind a device sleep so the host's dispatch stays out), the kernel's
+bound (its bytes at the HBM rate against its float32 FMAs at the
+float32 rate, the larger), its share of the bound, its GB/s, the
+instantiation it runs and its largest difference from the plain form.
+On the CPU only the plain form and the convolution run, timed by the
+wall clock.
+
+    python -m openbts_ttsou_tpu_torch.tools.kernel_bakeoff [--reps 25]
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from openbts_ttsou_tpu_torch.tools import common
+
+TOOL = "kernel_bakeoff"
+N_CHAN = 512
+#: K1's shapes on the main paths, (rows, p, q, taps, T) on [rows, T]: the
+#: uplink, its downlink stimulus, the duplex block's two calls, and a
+#: shard's two calls on a (chan 2, time 2) mesh
+K1_SHAPES = ((N_CHAN, 65, 96, 961, 24000), (N_CHAN, 96, 65, 651, 16250),
+             (N_CHAN, 65, 96, 961, 24192), (N_CHAN, 96, 65, 651, 16380),
+             (N_CHAN // 2, 65, 96, 961, 24192),
+             (N_CHAN // 2, 96, 65, 651, 16380))
+
+
+def bound_ms(rows: int, t_in: int, p: int, q: int,
+             lpf: np.ndarray) -> tuple[float, str]:
+    """Least time for K1's work on an H100: each input read once and
+    each output written once at the data-sheet HBM rate, against the
+    float32 FMAs of the nonzero taps each output uses (2 FMAs a tap,
+    real and imaginary) at the data-sheet float32 rate."""
+    from openbts_ttsou_tpu_torch.ops import cuda_fir, fir
+
+    n_out = fir.polyphase_output_len(t_in, p, q)
+    taps, _ = cuda_fir.branch_table(p, q, lpf.tobytes())
+    nnz = (taps != 0).sum(1)  # per branch
+    per_out = nnz[np.arange(n_out) % p].sum()
+    flops = rows * per_out * 4.0
+    nbytes = rows * (t_in + n_out) * 8.0
+    t_bytes = nbytes / common.HBM_BYTES_PER_S
+    t_ops = flops / common.FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def library_call(x: torch.Tensor, p: int, q: int, lpf: np.ndarray):
+    """One strided float32 convolution computing K1's function on x's
+    real and imaginary planes (cuDNN on the card)."""
+    from openbts_ttsou_tpu_torch.ops import fir
+
+    t_in, taps = x.shape[-1], len(lpf)
+    _, _, _, _, k_prime, pad_left = fir._polyphase_plan(p, q, taps)
+    n_out = fir.polyphase_output_len(t_in, p, q)
+    m_cycles = -(-n_out // p)
+    pad_right = max(0, (m_cycles - 1) * q + k_prime - pad_left - t_in)
+    bank = torch.from_numpy(fir._polyphase_filter_bank(p, q, lpf)).to(
+        x.device)  # [p, 1, K']
+    planes = torch.cat([x.real, x.imag])[:, None, :]
+    return lambda: F.conv1d(F.pad(planes, (pad_left, pad_right)), bank,
+                            stride=q)
+
+
+def bake(rows: int, p: int, q: int, taps: int, t_in: int,
+         gen: torch.Generator, reps: int = 25) -> dict:
+    """K1 at one shape on the card: the three paths' device ms, the
+    bound and the kernel's difference from the plain form."""
+    from openbts_ttsou_tpu_torch.ops import cuda_fir, fir
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.randn((rows, t_in), dtype=torch.complex64, device="cuda",
+                    generator=gen)
+    lpf = fir.resampler_lpf(p, q, taps)
+
+    def kernel():
+        return cuda_fir.polyphase_resample_cuda(x, p, q, lpf)
+
+    def plain():
+        return cuda_fir.polyphase_resample_plain(x, p, q, lpf)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    bound, bound_by = bound_ms(rows, t_in, p, q, lpf)
+    nbytes = rows * (t_in + fir.polyphase_output_len(t_in, p, q)) * 8
+    ms, ahead = common.cuda_ms(kernel, reps)
+    plain_ms, _ = common.cuda_ms(plain, reps)
+    library_ms, library_ahead = common.cuda_ms(library_call(x, p, q, lpf),
+                                               reps)
+    return {"geometry": f"{p}/{q} {taps} taps [{rows}, {t_in}]",
+            "instantiation": cuda_fir.instantiation(p, q, lpf),
+            "shape_ok": got.shape == want.shape,
+            "finite": bool(torch.isfinite(got).all()),
+            "max_abs_err": float((got - want).abs().max()),
+            "max_abs_plain": float(want.abs().max()),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound, "bound_by": bound_by,
+            "bound_share": bound / ms, "gbytes_per_s": nbytes / ms / 1e6,
+            "host_queue_share": {"kernel": ahead, "library": library_ahead}}
+
+
+def bake_cpu(rows: int, p: int, q: int, taps: int, t_in: int,
+             reps: int) -> dict:
+    """The plain form and the convolution on the CPU, wall ms."""
+    from openbts_ttsou_tpu_torch.ops import cuda_fir, fir
+
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((rows, t_in), dtype=torch.complex64, generator=g)
+    lpf = fir.resampler_lpf(p, q, taps)
+
+    def wall(fn):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    return {"geometry": f"{p}/{q} {taps} taps [{rows}, {t_in}]",
+            "ms": None,
+            "plain_wall_ms": wall(
+                lambda: cuda_fir.polyphase_resample_plain(x, p, q, lpf)),
+            "library_wall_ms": wall(library_call(x, p, q, lpf))}
+
+
+def main(argv=None) -> dict:
+    ap = common.parser(__doc__)
+    ap.add_argument("--reps", type=int, default=25)
+    ap.add_argument("--rows", type=int, default=0,
+                    help="rows at every shape (default: each shape's own)")
+    args = ap.parse_args(argv)
+    dev = common.device_of(args)
+    shapes = [((args.rows or r), p, q, taps, t)
+              for r, p, q, taps, t in K1_SHAPES]
+    if dev.type == "cuda":
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        rows = [bake(*s, gen, args.reps) for s in shapes]
+    else:
+        rows = [bake_cpu(*s, min(args.reps, 3)) for s in shapes]
+    return common.emit({"tool": TOOL, "shapes": rows, **common.card(dev)})
+
+
+if __name__ == "__main__":
+    main()

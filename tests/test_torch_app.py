@@ -426,45 +426,29 @@ def test_command_line_defaults_to_cuda():
 
 
 def test_bts_stack_imports_no_jax():
-    """The port's subpackages import torch and numpy, never jax or the
-    JAX package: the BTS stack, the sharded pipelines and their entry
-    points, smqueue and the utilities."""
-    mods = ["openbts_ttsou_tpu_torch.apps.openbts",
-            "openbts_ttsou_tpu_torch.cli",
-            "openbts_ttsou_tpu_torch.control.procedures",
-            "openbts_ttsou_tpu_torch.control.voice",
-            "openbts_ttsou_tpu_torch.sip.interface",
-            "openbts_ttsou_tpu_torch.sms.messages",
-            "openbts_ttsou_tpu_torch.gsm.channels",
-            "openbts_ttsou_tpu_torch.gsm.trxmanager",
-            "openbts_ttsou_tpu_torch.gsm.btsconfig",
-            "openbts_ttsou_tpu_torch.gsm.lapdm",
-            "openbts_ttsou_tpu_torch.gsm.l3",
-            "openbts_ttsou_tpu_torch.gsm.gsm610",
-            "openbts_ttsou_tpu_torch.utils.gsmtap",
-            "openbts_ttsou_tpu_torch.utils.logger",
-            "openbts_ttsou_tpu_torch.utils.f16",
-            "openbts_ttsou_tpu_torch.utils.profiling",
-            "openbts_ttsou_tpu_torch.parallel",
-            "openbts_ttsou_tpu_torch.parallel.mesh",
-            "openbts_ttsou_tpu_torch.parallel.halo",
-            "openbts_ttsou_tpu_torch.parallel.sharded",
-            "openbts_ttsou_tpu_torch.parallel.distributed",
-            "openbts_ttsou_tpu_torch.parallel.dryrun",
-            "openbts_ttsou_tpu_torch.parallel.worker",
-            "openbts_ttsou_tpu_torch.smqueue",
-            "openbts_ttsou_tpu_torch.smqueue.queue",
-            "openbts_ttsou_tpu_torch.smqueue.__main__"]
-    code = ("import importlib, sys\n"
-            f"for m in {mods!r}:\n"
+    """Every module of the port (walked with pkgutil, so later modules are
+    covered too: the BTS stack, the sharded pipelines and their entry
+    points, smqueue, the utilities and the tools) imports torch and
+    numpy, never jax or the JAX package."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import openbts_ttsou_tpu_torch as pkg\n"
+            "mods = [m.name for m in pkgutil.walk_packages(\n"
+            "    pkg.__path__, pkg.__name__ + '.')]\n"
+            "for m in mods:\n"
             "    importlib.import_module(m)\n"
+            "need = {'openbts_ttsou_tpu_torch.tools.daemon_soak',\n"
+            "        'openbts_ttsou_tpu_torch.smqueue.__main__',\n"
+            "        'openbts_ttsou_tpu_torch.parallel.worker'}\n"
+            "assert need <= set(mods), need - set(mods)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or "
             "k.startswith(('jax.', 'jaxlib', 'openbts_ttsou_tpu.')) or "
             "k == 'openbts_ttsou_tpu')\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 80
 
 
 # ---- L3: the CC message types, and parity with the JAX codecs ---------------

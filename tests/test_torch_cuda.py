@@ -535,3 +535,33 @@ def test_exchange_halo_on_card_equals_full_stream(card):
         assert got[s].device.type == "cuda"
         assert torch.equal(got[s], pad[s.chan, :, s.time * 100:
                                        s.time * 100 + 112])
+
+
+# ---- the tools on the card ----------------------------------------------------
+
+@pytest.mark.cuda
+def test_kernel_probe_uplink_on_card(card):
+    """K1 at the uplink shape against float64: no worse than twice the
+    plain form's largest error (both are float32 rounding noise)."""
+    from openbts_ttsou_tpu_torch.tools import kernel_probe
+
+    rec = kernel_probe.main(["--shapes", "uplink", "--rows", "16"])
+    (row,) = rec["rows"]
+    assert rec["ok"] and row["shape"] == "uplink"
+    assert row["kernel"]["max_rel_err"] < 1e-6
+    assert rec["device"] == torch.cuda.get_device_name(0) and rec["card"]
+
+
+@pytest.mark.cuda
+def test_daemon_soak_on_card_has_no_stale_burst(card):
+    """The wire soak at 2 carriers on the card: 4 timed blocks after the
+    clock lead has grown to the 26-frame block, nothing late or dumped,
+    K1 twice a block."""
+    from openbts_ttsou_tpu_torch.tools import daemon_soak
+
+    rec = daemon_soak.main(["--carriers", "2", "--blocks", "4",
+                            "--warmup", "6", "--block-frames", "26",
+                            "--base-port", "55400"])
+    assert rec["stale_dumped"] == 0 and rec["underruns"] == 0
+    assert rec["uplink_datagrams"] >= 26 * 2 * 7 * 2
+    assert rec["k1_launches"] == 2 * rec["blocks_run"]
