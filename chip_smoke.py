@@ -8,8 +8,8 @@ Phases (each one raises on failure; the script then exits non-zero and
 prints no result):
 
 1. card: name, power limit, torch/CUDA/nvcc versions; build every CUDA
-   kernel from `openbts_ttsou_tpu_torch/csrc/` and the native runtime
-   (`native/`, the daemon's sockets and queues);
+   kernel from `openbts_ttsou_tpu_torch/csrc/` and the port's native
+   runtime (`csrc/runtime/` with g++, the daemon's sockets and queues);
 2. kernels: each kernel against its plain PyTorch version on the card,
    at the shapes the main paths give it (K1 at 65/96 · 961 taps on
    [512, 24000] (uplink) and [512, 24192] (duplex uplink with its two
@@ -97,16 +97,24 @@ prints no result):
     through its `main([...])`: the wire soak (`daemon_soak`) at 1
     carrier as `python -m`, at 8 and 128 in-process (replay bus, 26-frame
     blocks, depth 2, full load, 10 timed blocks after 6 warm-up blocks,
-    no stale burst or underrun in the timed window) and at 8 over the
-    socket bus; `kernel_probe` (K1 against float64, no worse than its
-    plain form); `exact_bakeoff` at 128, 256 and 512 carriers (equal
-    results, the recommended boundary); `stage_bench`, `dfe_cost_probe`
-    and `encode_stage_probe` at 512; `scaling_bench` at 1, 2 and 4
-    shards of 64 carriers; `iq_tool` record and replay at 4 carriers ×
-    26 frames (every planted burst detected); `trx_ping` against `python
-    -m openbts_ttsou_tpu_torch.trx.daemon --device cuda` (every verb
-    answered); `transfer_probe`. Phase 2 times K1 through
-    `tools/kernel_bakeoff.py`.
+    no stale burst or underrun and no uplink datagram lost in the timed
+    window), at 512 in-process with 4 timed blocks (its sockets past
+    descriptor 1024, which the port's `poll()` transport takes) and at 8
+    over the socket bus; `kernel_probe` (K1 against float64, no worse
+    than its plain form); `exact_bakeoff` at 128, 256 and 512 carriers
+    (equal results, the recommended boundary); `stage_bench`,
+    `dfe_cost_probe` and `encode_stage_probe` at 512; `scaling_bench` at
+    1, 2 and 4 shards of 64 carriers; `roofline` at 512 (K1–K8 and the
+    DFE-on uplink block: the work counted from shapes, its bound, time
+    and share); `collective_inventory` at 8 shards of 256 carriers a chan
+    shard (equal to phase 15's traffic a step); `scaling_2proc` at 96
+    carriers, 2 shards, 4 duplex steps (one worker process against two
+    on the card over gloo, results bit-equal); `iq_tool` record and
+    replay at 4 carriers × 26 frames (every planted burst detected);
+    `trx_ping` against `python -m openbts_ttsou_tpu_torch.trx.daemon
+    --device cuda` (every verb answered); `transfer_probe`. Phase 2
+    times K1 through `tools/kernel_bakeoff.py`, phase 18 also at the
+    128-carrier soak's two shapes.
 
 Earlier lines are JSON records (the last of them each phase's wall time,
 then the kernels line); the line before the last is the card's name and
@@ -2792,24 +2800,41 @@ TOOLS_PORT = DAEMON_PORT + 1000  # the in-process soaks (a 128-carrier one
 # binds 774 ports from here)
 TOOLS_SOAK_PROC_PORT = DAEMON_PORT + 2000  # the soak run as a process
 TOOLS_TRX_PORT = DAEMON_PORT + 2100  # the daemon trx_ping pings
+TOOLS_WIDE_PORT = 24000  # the 512-carrier soak binds 3,076 UDP ports from
+# here, below Linux's ephemeral range
 SOAK_BF, SOAK_WARMUP, SOAK_BLOCKS = 26, 6, 10
 SOAK_ROWS = (1, 8, 128)  # replay rows; the first runs as a process
+SOAK_WIDE, SOAK_WIDE_BLOCKS = 512, 4  # the row past FD_SETSIZE
+INVENTORY_SHARDS, INVENTORY_CHAN = 8, 1024  # (4, 2) shards of phase 15's
+# 256 carriers a chan shard
+SCALING_ARGS = ["--carriers", "96", "--shards", "2", "--steps", "4",
+                "--duplex", "1"]  # the JAX tool's defaults
+# K1's shapes in the scaling workers (processes, so not recorded): a
+# shard's duplex step at 96 carriers, the worker's serial chain over 4
+# steps of 26 frames and its serial downlink of a step
+SCALING_K1_SHAPES = {(96, 24192, 65, 96, 961), (96, 16380, 96, 65, 651),
+                     (96, 192000, 65, 96, 961), (96, 32500, 96, 65, 651)}
+# (rows, p, q, taps, T) of the 128-carrier soak's K1 calls, timed
+K1_SOAK_SHAPES = ((128, 65, 96, 961, 48192), (128, 96, 65, 651, 32630))
 
 
 def soak_args(carriers: int, base: int, bus: str = "replay",
-              ul_slots: int = 7) -> list:
+              ul_slots: int = 7, blocks: int = SOAK_BLOCKS) -> list:
     return ["--device", "cuda", "--carriers", str(carriers),
             "--block-frames", str(SOAK_BF), "--depth", "2",
-            "--warmup", str(SOAK_WARMUP), "--blocks", str(SOAK_BLOCKS),
+            "--warmup", str(SOAK_WARMUP), "--blocks", str(blocks),
             "--ul-slots", str(ul_slots), "--bus", bus,
             "--base-port", str(base), "--timeout", "300"]
 
 
 def check_soak(r: dict, what: str) -> None:
     """A soak row's record: the uplink flowed, K1 ran twice a block, and
-    a replay row's timed window neither dumped nor underran."""
+    a replay row's timed window neither dumped nor underran nor lost an
+    uplink datagram (every frame of its blocks brought one a loaded slot
+    a carrier)."""
+    blocks = r["blocks_timed"]
     need = SOAK_BF * r["carriers"] * r["ul_slots"] * (
-        SOAK_BLOCKS - 2 if r["bus"] == "replay" else SOAK_BLOCKS // 2)
+        blocks - 2 if r["bus"] == "replay" else blocks // 2)
     check(r["uplink_datagrams"] >= need,
           f"{what}: {r['uplink_datagrams']} uplink datagrams < {need}")
     check(r["k1_launches"] == 2 * r["blocks_run"],
@@ -2819,6 +2844,10 @@ def check_soak(r: dict, what: str) -> None:
         check(r["stale_dumped"] == 0 and r["underruns"] == 0,
               f"{what}: {r['stale_dumped']} stale, {r['underruns']} "
               f"underruns in the timed window")
+        check(r["uplink_lost_timed"] == 0
+              and r["uplink_timed"] == r["expected_uplink_timed"],
+              f"{what}: {r['uplink_timed']} uplink datagrams in the timed "
+              f"window, {r['expected_uplink_timed']} expected")
     check(r["realtime"] == (r["ms_per_frame"] < r["air_ms_per_frame"]
                             and r["stale_dumped"] == r["underruns"] == 0),
           f"{what}: realtime flag")
@@ -2839,20 +2868,24 @@ def check_card_fields(r: dict, what: str) -> None:
           and bool(r.get("card")), f"{what}: card fields {r.get('card')}")
 
 
-def phase_tools() -> dict:
+def phase_tools(sharded_traffic: dict) -> dict:
     """Phase 18: the port's tools (`openbts_ttsou_tpu_torch/tools/`) on
     the card, each through its `main([...])`, the 1-carrier soak as `python
     -m`: the wire soak at 1, 8 and 128 carriers (replay bus, 26-frame
     blocks, depth 2, full load; 10 timed blocks after 6 warm-up blocks,
-    which cover the daemon's clock lead growing from 20 to 26 frames) and
-    at 8 over the socket bus, the K1 probe, both exact schedules at 128,
-    256 and 512 carriers, the per-stage benches at 512, the mesh at 1, 2
-    and 4 shards of 64 carriers, an IQ capture recorded and replayed, a
+    which cover the daemon's clock lead growing from 20 to 26 frames), at
+    512 (4 timed blocks, past descriptor 1024) and at 8 over the socket
+    bus, the K1 probe, both exact schedules at 128, 256 and 512 carriers,
+    the per-stage benches at 512, the mesh at 1, 2 and 4 shards of 64
+    carriers, the roofline, the collective inventory (held to phase 15's
+    `sharded_traffic`, {kind: [count, bytes]} a step), two worker
+    processes against one, an IQ capture recorded and replayed, a
     control-plane ping of `python -m openbts_ttsou_tpu_torch.trx.daemon`
     and the transfer probe. K1's launches are counted from zero over the
     soaks and over the other tools apart (the probe's comparison
-    launches left out), and K1 is held against its plain form at every
-    shape they launched it at."""
+    launches left out), K1 is held against its plain form at every
+    shape they launched it at (and at the scaling workers' shapes), and
+    timed at the 128-carrier soak's two shapes."""
     from openbts_ttsou_tpu_torch.ops import cuda_fir, fir
     from openbts_ttsou_tpu_torch.tools import (iq_tool, kernel_probe,
                                                transfer_probe, trx_ping)
@@ -2921,14 +2954,23 @@ def phase_tools() -> dict:
     try:
         soak_k1 = tools_soaks(out)
         soak_shapes = set(k1_shapes)
-        tools_k1 = tools_probes(out)
+        tools_k1 = tools_probes(out, sharded_traffic)
     finally:
         fir.polyphase_resample = resample
     # the soak process's launches: 1 carrier at the in-process soaks'
     # lengths
     shapes = set(k1_shapes) | {(1, t, p, q, taps) for _, t, p, q, taps
-                               in soak_shapes}
+                               in soak_shapes} | SCALING_K1_SHAPES
     out["k1_checked"] = check_k1_shapes(shapes)
+    # K1 timed at the 128-carrier soak's two shapes
+    from openbts_ttsou_tpu_torch.tools.kernel_bakeoff import bake
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    out["k1_soak_timed"] = [bake(*s, gen) for s in K1_SOAK_SHAPES]
+    for r in out["k1_soak_timed"]:
+        check(r["shape_ok"] and r["finite"]
+              and r["max_abs_err"] <= 2e-4 * r["max_abs_plain"],
+              f"K1 {r['geometry']}: max|kernel - plain| {r['max_abs_err']}")
     out["launches"] = {"polyphase_resample": soak_k1}
     out["tools_launches"] = {"polyphase_resample": tools_k1}
     record(out)
@@ -2977,6 +3019,13 @@ def tools_soaks(out: dict) -> int:
     for n in SOAK_ROWS[1:]:
         rows.append(run_tool(out, f"daemon_soak_{n}", daemon_soak,
                              soak_args(n, TOOLS_PORT)))
+    wide = run_tool(out, f"daemon_soak_{SOAK_WIDE}", daemon_soak,
+                    soak_args(SOAK_WIDE, TOOLS_WIDE_PORT,
+                              blocks=SOAK_WIDE_BLOCKS))
+    check(wide["largest_fd"] > 1024, f"soak {SOAK_WIDE} carriers: largest "
+                                     f"descriptor {wide['largest_fd']}, "
+                                     f"not past FD_SETSIZE")
+    rows.append(wide)
     rows.append(run_tool(out, "daemon_soak_socket_8", daemon_soak,
                          soak_args(8, TOOLS_PORT, "socket", 3)))
     for r in rows:
@@ -2991,7 +3040,7 @@ def tools_soaks(out: dict) -> int:
     return soak_k1
 
 
-def tools_probes(out: dict) -> int:
+def tools_probes(out: dict, sharded_traffic: dict) -> int:
     """Phase 18's benches and probes; K1's launches over them, counted
     from zero."""
     from openbts_ttsou_tpu_torch.ops import cuda_fir
@@ -3018,9 +3067,56 @@ def tools_probes(out: dict) -> int:
         check_card_fields(out[name], name)
     check(all(r["use_dfe_every_frame"] for r in out["dfe_cost_probe"]["rows"]),
           "dfe_cost_probe: the DFE-on leg lost use_dfe")
+    tools_last(out, sharded_traffic)
     tools_k1 = cuda_fir.polyphase_resample_cuda.launches
     check(tools_k1 > 0, "the tools never launched K1")
     return tools_k1
+
+
+def tools_last(out: dict, sharded_traffic: dict) -> None:
+    """The tools of the last slice: the roofline at 512 carriers (every
+    region and the block with a count, a bound, a time and a share), the
+    collective inventory at 8 shards of phase 15's width a chan shard,
+    equal to phase 15's traffic a step, and two worker processes on the
+    card against one, their results equal."""
+    from openbts_ttsou_tpu_torch.tools import (collective_inventory,
+                                               roofline, scaling_2proc)
+
+    roof = run_tool(out, "roofline", roofline,
+                    ["--device", "cuda", "--carriers", str(N_CHAN),
+                     "--block-carriers", str(N_CHAN)])
+    check_card_fields(roof, "roofline")
+    for r in roof["regions"] + roof["rows"]:
+        what = f"roofline {r.get('name', r.get('carriers'))}"
+        check(r["bound_ms"] > 0 and r["share"] and 0 < r["share"] <= 1,
+              f"{what}: bound {r['bound_ms']} ms, share {r['share']}")
+    check({r["name"] for r in roof["regions"]} >= {
+        "K1 65/96", "K1 96/65", "K2", "K3", "K4", "K5", "K6", "K7",
+        "K8 xcch", "K8 rach", "K8 tch", "K8 facch"}, "roofline: regions")
+    out["roofline"] = roof
+
+    inv = run_tool(out, "collective_inventory", collective_inventory,
+                   ["--device", "cuda", "--shards", str(INVENTORY_SHARDS),
+                    "--carriers", str(INVENTORY_CHAN)])
+    check(inv["mesh"] == {"chan": 4, "time": 2}, f"inventory {inv['mesh']}")
+    for kind in ("uplink", "duplex"):
+        got = {k: [v["count"], v["bytes_per_step"]]
+               for k, v in inv[kind].items()}
+        check(got == sharded_traffic[kind],
+              f"collective_inventory {kind}: {got} against phase 15's "
+              f"{sharded_traffic[kind]}")
+    out["collective_inventory"] = inv
+
+    sc = run_tool(out, "scaling_2proc", scaling_2proc,
+                  ["--device", "cuda", *SCALING_ARGS, "--timeout", "300"])
+    d = sc["detail"]
+    check(d["results_equal"] and d["soft_differ"] == 0
+          and d["tx_differ"] == 0,
+          f"scaling_2proc: two processes differ from one ({d})")
+    check(all(w["device"].startswith("cuda")
+              for w in d["workers_1proc"] + d["workers_2proc"]),
+          "scaling_2proc: a worker ran off the card")
+    out["scaling_2proc"] = sc
 
 
 def kernels_line(kern: dict, launches: dict) -> dict:
@@ -3091,7 +3187,8 @@ def main() -> int:
     sharded = timed("sharded", phase_sharded)
     timed("sharded_card_vs_cpu", phase_sharded_card_vs_cpu)
     timed("distributed", phase_distributed)
-    tools = timed("tools", phase_tools)
+    tools = timed("tools", phase_tools,
+                  sharded["traffic_bytes_per_step"])
     record({"phase": "wall", "phase_s": phase_s,
             "total_s": time.perf_counter() - t_start})
 

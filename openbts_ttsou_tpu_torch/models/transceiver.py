@@ -115,6 +115,62 @@ def uplink_block(cfg: eng.TrxConfig, spec: UplinkSpec, state: eng.TrxState,
                      sym[..., : spec.block_symbols])
 
 
+class ExactWalk(NamedTuple):
+    """What the sequential walk of `process_block_exact` leaves: per
+    frame the gated successes, the channel validity and the last
+    adoption's frame after it ([F, C, 8]) and the threshold it entered
+    with ([F, C]); then the walk's final threshold, last false-detect
+    frame ([C]), validity, estimate frame and last adoption ([C, 8])."""
+
+    success: torch.Tensor
+    valid_post: torch.Tensor
+    last_post: torch.Tensor
+    thr_entry: torch.Tensor
+    thr: torch.Tensor
+    prev_false: torch.Tensor
+    valid: torch.Tensor
+    est_fn: torch.Tensor
+    last: torch.Tensor
+
+
+def exact_walk(fns: torch.Tensor, active: torch.Tensor, is_tsc: torch.Tensor,
+               energy: torch.Tensor, detected: torch.Tensor,
+               det_ok: torch.Tensor, need_dfe: torch.Tensor,
+               state: eng.TrxState) -> ExactWalk:
+    """The threshold walk of `process_block_exact`, frame by frame on
+    [C, 8] tensors (Transceiver.cpp:294-375): the energy gate against the
+    running threshold, success, channel adoption (a TSC success that
+    wants an estimate) and `eng.threshold_walk`. fns [F]; active,
+    is_tsc, energy, detected (the raw TSC detection) and det_ok (the
+    threshold-independent detection) [F, C, 8]; need_dfe [C]."""
+    f, c = energy.shape[:2]
+    thr = state.energy_threshold
+    prev_false = state.prev_false_detect_fn
+    valid = state.chan_valid
+    est_fn = state.chan_estimate_fn
+    last = torch.full((c, 8), -1, dtype=torch.int32, device=energy.device)
+    success_s, valid_post_s, last_post_s, thr_entry_s = [], [], [], []
+    for i in range(f):
+        fn_i, act_i, tsc_i = fns[i], active[i], is_tsc[i]
+        thr_entry_s.append(thr)
+        gate = (energy[i] > (thr * thr)[:, None]) & act_i
+        success = gate & det_ok[i]
+        want = ((fn_delta(fn_i, est_fn) > 50) | ~valid) & need_dfe[:, None]
+        do_est = want & tsc_i & success
+        valid = torch.where(do_est, True,
+                            valid & ~(~detected[i] & tsc_i & gate))
+        est_fn = torch.where(do_est, fn_i, est_fn)
+        last = torch.where(do_est, i, last)
+        thr, prev_false = eng.threshold_walk(fn_i, thr, prev_false, act_i,
+                                             gate, success)
+        success_s.append(success)
+        valid_post_s.append(valid)
+        last_post_s.append(last)
+    return ExactWalk(torch.stack(success_s), torch.stack(valid_post_s),
+                     torch.stack(last_post_s), torch.stack(thr_entry_s),
+                     thr, prev_false, valid, est_fn, last)
+
+
 def process_block_exact(cfg: eng.TrxConfig, frames: int,
                         state: eng.TrxState, sym: torch.Tensor
                         ) -> tuple[eng.TrxState, eng.RxResult]:
@@ -186,35 +242,16 @@ def process_block_exact(cfg: eng.TrxConfig, frames: int,
     toa = torch.where(ts_flat, det_tsc.toa, det_rach.toa)
 
     # ---- the light sequential walk: threshold + adoption -------------
-    thr = state.energy_threshold
-    prev_false = state.prev_false_detect_fn
-    valid = state.chan_valid
-    est_fn = state.chan_estimate_fn
-    last = torch.full((c, 8), -1, dtype=torch.int32, device=dev)
-    d_raw_all = det_tsc.detected.reshape(f, c, 8)
-    d_ok_all = det_any.reshape(f, c, 8)
-    success_s, valid_post_s, last_post_s, thr_entry_s = [], [], [], []
-    for i in range(f):
-        fn_i, act_i, tsc_i = fns[i], active[i], is_tsc[i]
-        thr_entry_s.append(thr)
-        gate = (energy[i] > (thr * thr)[:, None]) & act_i
-        success = gate & d_ok_all[i]
-        want = ((fn_delta(fn_i, est_fn) > 50) | ~valid) & need_dfe[:, None]
-        do_est = want & tsc_i & success
-        valid = torch.where(do_est, True,
-                            valid & ~(~d_raw_all[i] & tsc_i & gate))
-        est_fn = torch.where(do_est, fn_i, est_fn)
-        last = torch.where(do_est, i, last)
-        thr, prev_false = eng.threshold_walk(fn_i, thr, prev_false, act_i,
-                                             gate, success)
-        success_s.append(success)
-        valid_post_s.append(valid)
-        last_post_s.append(last)
-    success = torch.stack(success_s).reshape(-1)  # [F·C·8]
+    walk = exact_walk(fns, active, is_tsc, energy,
+                      det_tsc.detected.reshape(f, c, 8),
+                      det_any.reshape(f, c, 8), need_dfe, state)
+    thr, prev_false, valid, est_fn, last = (
+        walk.thr, walk.prev_false, walk.valid, walk.est_fn, walk.last)
+    success = walk.success.reshape(-1)  # [F·C·8]
 
     # ---- estimation candidates + DFE design (batched, gated) ---------
     n = f * c * 8
-    thr_b = torch.stack(thr_entry_s).repeat_interleave(8, dim=-1).reshape(-1)
+    thr_b = walk.thr_entry.repeat_interleave(8, dim=-1).reshape(-1)
     new_snr_all = amplitude.abs() ** 2 / (thr_b * thr_b + 1.0)
     amp_safe = torch.where(amplitude == 0, torch.ones_like(amplitude),
                            amplitude)
@@ -243,7 +280,7 @@ def process_block_exact(cfg: eng.TrxConfig, frames: int,
         return cand[pick.to(torch.int64), cols]
 
     # equalizer weights per burst: the adoption state AFTER its own frame
-    pick_post = torch.stack(last_post_s).reshape(f, c8) + 1  # [F, C8]
+    pick_post = walk.last_post.reshape(f, c8) + 1  # [F, C8]
     w_sel = sel(cands(state.dfe_forward, w_all), pick_post
                 ).reshape(n, eng.DFE_NF)
     b_sel = sel(cands(state.dfe_feedback, b_all), pick_post
@@ -252,7 +289,7 @@ def process_block_exact(cfg: eng.TrxConfig, frames: int,
                   ).reshape(n)
 
     use_dfe = (ts_flat & need_dfe.repeat_interleave(8).repeat(f)
-               & torch.stack(valid_post_s).reshape(-1))
+               & walk.valid_post.reshape(-1))
     k = 148
 
     # ---- demod + equalizer (batched, equalizer gated) ----------------

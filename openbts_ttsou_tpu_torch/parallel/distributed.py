@@ -29,21 +29,26 @@ from openbts_ttsou_tpu_torch.parallel.mesh import Mesh
 def initialize(init_method: Optional[str] = None,
                world_size: Optional[int] = None,
                rank: Optional[int] = None, device="cuda",
-               timeout_s: float = 120.0) -> bool:
+               timeout_s: float = 120.0,
+               backend: Optional[str] = None) -> bool:
     """Join the process group; True when this call joined it.
 
     Defaults come from torch's WORLD_SIZE and RANK (the rendezvous then
     from MASTER_ADDR/MASTER_PORT). A single process without an
     `init_method` needs no group and this is a no-op; with one (a
     `tcp://` or `file://` URL) it joins even alone. The backend follows
-    the mesh's device: `nccl` for CUDA, `gloo` for the CPU; a backend
-    that fails raises. `timeout_s` bounds every collective, so a rank
-    that never arrives fails the others instead of hanging them."""
+    the mesh's device unless given: `nccl` for CUDA, `gloo` for the CPU.
+    `gloo` with CUDA shards runs ranks that share one card (NCCL refuses
+    two ranks on one card): the mesh then stages what crosses ranks
+    through the CPU. A backend that fails raises. `timeout_s` bounds
+    every collective, so a rank that never arrives fails the others
+    instead of hanging them."""
     world_size = world_size or int(os.environ.get("WORLD_SIZE", "1"))
     rank = rank if rank is not None else int(os.environ.get("RANK", "0"))
     if dist.is_initialized() or (world_size <= 1 and init_method is None):
         return False
-    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    if backend is None:
+        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world_size, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout_s))

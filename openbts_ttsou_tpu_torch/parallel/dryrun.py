@@ -25,6 +25,7 @@ import argparse
 import json
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -50,13 +51,36 @@ def _traffic(mesh, fn) -> dict:
             for k, v in mesh.traffic.items()}
 
 
-def run(n_shards: int, device="cuda") -> dict:
-    """Run the dry run; raises AssertionError on a failed check."""
+class Steps(NamedTuple):
+    """One sharded uplink step and one duplex step over a mesh, with
+    their outputs and the mesh's traffic in each."""
+
+    mesh: object
+    cfg: TrxConfig
+    spec: ShardedPipelineSpec
+    state_sh: object
+    samples: torch.Tensor
+    att: torch.Tensor
+    duplex: object
+    uplink_out: tuple
+    duplex_out: tuple
+    traffic_up: dict
+    traffic_dup: dict
+
+
+def sharded_steps(n_shards: int, device="cuda",
+                  carriers: int | None = None) -> Steps:
+    """One sharded uplink step and one full duplex step (the time-sharded
+    downlink: the tx symbol-halo ring and a 96/65 resample a shard) over
+    a mesh of n_shards at `carriers` (default 2 a chan shard), on random
+    noise at the device rate, each with the mesh's traffic."""
     dev = resolve_device(device)
     mesh = make_mesh(n_shards, dev)
     n_chan_dev, n_time = mesh.shape["chan"], mesh.shape["time"]
-    n_chan = 2 * n_chan_dev  # 2 carriers a chan shard
-    c_local = n_chan // n_chan_dev
+    n_chan = carriers or 2 * n_chan_dev
+    if n_chan % n_chan_dev:
+        raise ValueError(f"{n_chan} carriers do not split over "
+                         f"{n_chan_dev} chan shards")
     cfg = TrxConfig(n_chan=n_chan)
     spec = ShardedPipelineSpec(n_chan_total=n_chan, frames_per_shard=13)
     frames_total = n_time * 13
@@ -71,18 +95,11 @@ def run(n_shards: int, device="cuda") -> dict:
         (rng.standard_normal((n_chan, n_time * spec.block_in))
          + 1j * rng.standard_normal((n_chan, n_time * spec.block_in))
          ).astype(np.complex64) * 400.0).to(dev)
-    t0 = time.perf_counter()
 
     step = sharded_uplink_pipeline(mesh, cfg, spec)
     out = {}
     traffic_up = _traffic(mesh, lambda: out.update(up=step(state_sh, samples,
                                                            0)))
-    _, res, clock = out["up"]
-    assert res.soft_bits.shape == (frames_total, n_chan, 8, 148)
-    assert int(clock) == n_time * spec.block_in
-
-    # the full-duplex step: time-sharded downlink (the tx symbol-halo
-    # ring and a 96/65 resample a shard) with the uplink
     bits = torch.zeros((frames_total, n_chan, 8, 148), dtype=torch.uint8,
                        device=dev)
     valid = torch.ones((frames_total, n_chan, 8), dtype=torch.bool,
@@ -92,7 +109,26 @@ def run(n_shards: int, device="cuda") -> dict:
     duplex = sharded_duplex_pipeline(mesh, cfg, spec)
     traffic_dup = _traffic(mesh, lambda: out.update(
         dup=duplex(state_sh, samples, bits, valid, att, 0)))
-    _, res2, tx, _ = out["dup"]
+    return Steps(mesh, cfg, spec, state_sh, samples, att, duplex, out["up"],
+                 out["dup"], traffic_up, traffic_dup)
+
+
+def run(n_shards: int, device="cuda") -> dict:
+    """Run the dry run; raises AssertionError on a failed check."""
+    t0 = time.perf_counter()
+    s = sharded_steps(n_shards, device)
+    mesh, cfg, spec, state_sh, samples = (s.mesh, s.cfg, s.spec, s.state_sh,
+                                          s.samples)
+    traffic_up, traffic_dup = s.traffic_up, s.traffic_dup
+    dev = samples.device
+    n_chan_dev, n_time = mesh.shape["chan"], mesh.shape["time"]
+    n_chan = cfg.n_chan
+    c_local = n_chan // n_chan_dev
+    frames_total = n_time * 13
+    _, res, clock = s.uplink_out
+    assert res.soft_bits.shape == (frames_total, n_chan, 8, 148)
+    assert int(clock) == n_time * spec.block_in
+    _, res2, tx, _ = s.duplex_out
     assert tx.shape == (n_chan, n_time * spec.block_in)
     assert res2.soft_bits.shape == (frames_total, n_chan, 8, 148)
 
@@ -117,8 +153,8 @@ def run(n_shards: int, device="cuda") -> dict:
             torch.zeros((), dtype=torch.int32, device=sdev), frames_total)
         tbits.append(b.reshape(frames_total, c_local, 8, 148).to(dev))
         t_valid.append(isb.reshape(frames_total, c_local, 8).to(dev))
-    _, _, tx2, _ = duplex(state_sh, samples, torch.cat(tbits, 1),
-                          torch.cat(t_valid, 1), att, 0)
+    _, _, tx2, _ = s.duplex(state_sh, samples, torch.cat(tbits, 1),
+                            torch.cat(t_valid, 1), s.att, 0)
     assert tx2.shape == (n_chan, n_time * spec.block_in)
 
     # the streaming FEC decode, time-sharded, with the static slot split:

@@ -16,12 +16,19 @@ bursts at amplitude 9000 on slot 1 of every third frame), checks its
 own shards against the port's serial chain (the full-stream resample
 and `rx_step` frame by frame; with `--duplex` also the tx against
 `downlink_block`), sums the mismatches over the ranks and prints one
-JSON line. Exits 1 when a check failed.
+JSON line. Exits 1 when a check failed. A step is timed from its call to
+the device's end of it, the checks apart; `per_step_s` leaves out the
+first step. The line also carries a digest of each of its frames' soft
+bits and of each of its shards' tx a step, so runs that split the same
+program differently over ranks compare bit for bit
+(`tools/scaling_2proc.py`). `--backend gloo` puts ranks that share one
+card in one group (NCCL refuses two ranks on one card).
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import sys
 import time
@@ -65,6 +72,11 @@ def scenario(n_carriers: int, frames_total: int) -> np.ndarray:
                                   fir.resampler_lpf(96, 65, 651)).numpy()
 
 
+def digest(a: np.ndarray) -> str:
+    """A short digest of an array's bytes."""
+    return hashlib.sha1(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--world-size", type=int, default=None)
@@ -79,11 +91,14 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--timeout", type=float, default=120.0,
                     help="seconds any collective may wait")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="process group backend (default: nccl on cuda, "
+                         "gloo on the CPU)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     distributed.initialize(args.init_method, args.world_size, args.rank,
-                           dev, args.timeout)
+                           dev, args.timeout, args.backend)
     rank = dist.get_rank() if dist.is_initialized() else 0
     world = dist.get_world_size() if dist.is_initialized() else 1
     per = args.shards_per_rank
@@ -134,19 +149,34 @@ def main(argv=None) -> int:
     mismatches = hits = 0
     tx_err = 0.0
     clocks, times = [], []
+    soft_digests, tx_digests = [], []
     for s in range(args.steps):
         x = torch.from_numpy(np.ascontiguousarray(
             dev_rate[chans, s * block + lo_in: s * block + hi_in])).to(dev)
         fn0 = s * frames_step
         f_lo = fn0 + t0 * spec.frames_per_shard
         f_hi = fn0 + t1 * spec.frames_per_shard
-        t_start = time.perf_counter()
         if args.duplex:
             sl = slice(f_lo, f_hi)
-            state_sh, res, tx, clock = step_fn(
-                state_sh, x, *(torch.from_numpy(a[sl]).to(dev)
-                               for a in (dl_bits, dl_valid, dl_atten)),
-                fn0)
+            dl_in = [torch.from_numpy(a[sl]).to(dev)
+                     for a in (dl_bits, dl_valid, dl_atten)]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t_start = time.perf_counter()
+        if args.duplex:
+            state_sh, res, tx, clock = step_fn(state_sh, x, *dl_in, fn0)
+        else:
+            state_sh, res, clock = step_fn(state_sh, x, fn0)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t_start)
+        soft = res.soft_bits.cpu().numpy()
+        soft_digests += [digest(f) for f in soft]
+        if args.duplex:
+            tx_np = tx.cpu().numpy()
+            tx_digests += [digest(tx_np[:, j * spec.block_in:
+                                        (j + 1) * spec.block_in])
+                           for j in range(t1 - t0)]
             want = downlink_block(
                 cfg, UplinkSpec(frames=frames_step), state0,
                 *(torch.from_numpy(a[fn0: fn0 + frames_step]).to(dev)
@@ -154,15 +184,15 @@ def main(argv=None) -> int:
             diff = (tx - want).abs()
             tx_err = max(tx_err, float(diff.max()))
             mismatches += int((diff > 2e-4 * float(want.abs().max())).sum())
-        else:
-            state_sh, res, clock = step_fn(state_sh, x, fn0)
         got = res.detected.cpu().numpy()
-        times.append(time.perf_counter() - t_start)
         clocks.append(int(clock))
         mismatches += int((got != det_serial[f_lo:f_hi]).sum())
         hits += int(got[:, :, 1].sum())
 
-    total = torch.tensor([mismatches], dtype=torch.int64, device=dev)
+    # gloo carries CPU tensors only
+    on_nccl = dist.is_initialized() and dist.get_backend() == "nccl"
+    total = torch.tensor([mismatches], dtype=torch.int64,
+                         device=dev if on_nccl else "cpu")
     if dist.is_initialized():
         dist.all_reduce(total)  # every rank learns the run's verdict
     ok = int(total) == 0 and hits > 0 and all(c == block for c in clocks)
@@ -171,13 +201,15 @@ def main(argv=None) -> int:
         "shards_per_rank": per, "duplex": args.duplex, "carriers": n,
         "device": str(dev),
         "backend": dist.get_backend() if dist.is_initialized() else None,
-        "ok": ok, "mismatches": mismatches,
+        "verified": True, "ok": ok, "mismatches": mismatches,
         "mismatches_all_ranks": int(total), "local_hits": hits,
         "tx_max_abs_diff": tx_err if args.duplex else None,
         "clock": clocks[0], "steps": args.steps,
         "first_step_s": times[0],
         "per_step_s": sum(times[1:]) / max(len(times) - 1, 1),
-        "traffic": mesh.traffic}), flush=True)
+        "traffic": mesh.traffic, "first_frame": t0 * spec.frames_per_shard,
+        "first_shard": t0, "soft_digests": soft_digests,
+        "tx_digests": tx_digests}), flush=True)
     if dist.is_initialized():
         dist.destroy_process_group()
     return 0 if ok else 1

@@ -1,4 +1,5 @@
-"""Native runtime bindings (ctypes over native/libtrx_runtime.so)."""
+"""Native runtime bindings (ctypes over the library built from
+`csrc/runtime/` into `build/native/`)."""
 
 from openbts_ttsou_tpu_torch.runtime.native import (  # noqa: F401
     BurstQueue,

@@ -1,12 +1,14 @@
-"""ctypes bindings for the native C++ runtime (the repo's `native/`).
+"""ctypes bindings for the port's native C++ runtime.
 
 The compute path is PyTorch; the runtime around it — datagram transport
 for the three planes, the timestamped sample ring and the transmit burst
 queue — is native C++ (like the reference's CommonLibs/Sockets +
-USRPDevice ring), loaded here via ctypes. The bindings are the JAX
-package's (`openbts_ttsou_tpu/runtime/native.py`), kept as the port's own
-copy. The library is built on demand from `native/*.cpp` with `make`
-into `native/libtrx_runtime.so`.
+USRPDevice ring), loaded here via ctypes. The sources are the port's
+own, under `csrc/runtime/`: the transport waits with `poll()`, so a
+socket at any descriptor works (a process of the wire daemon holds
+3n + 1 sockets at n carriers), and its handle table takes 8192 sockets.
+The library is built at first use with `g++` into `build/native/` at
+the repository root, and rebuilt when it is older than a source.
 """
 
 from __future__ import annotations
@@ -15,26 +17,41 @@ import ctypes
 import os
 import subprocess
 import threading
+from pathlib import Path
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "native")
-_LIB_NAME = "libtrx_runtime.so"
-_LIB_PATH = os.path.join(_NATIVE_DIR, _LIB_NAME)
+SRC_DIR = Path(__file__).resolve().parents[1] / "csrc" / "runtime"
+SOURCES = ("udp_transport.cpp", "sample_ring.cpp", "burst_queue.cpp")
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
+LIB_PATH = BUILD_DIR / "libtrx_runtime.so"
+CXX_FLAGS = ["-O2", "-fPIC", "-Wall", "-std=c++17", "-shared"]
 _lib = None
 _lock = threading.Lock()
 
 
+def _stale() -> bool:
+    if not LIB_PATH.exists():
+        return True
+    built = LIB_PATH.stat().st_mtime
+    return any((SRC_DIR / f).stat().st_mtime > built
+               for f in (*SOURCES, "runtime.h"))
+
+
 def _build() -> None:
-    """`make` the library under a name of this process, then move it into
-    place in one step, so a process loading it meanwhile never reads a
-    half-written file."""
-    tmp = f"{_LIB_NAME}.{os.getpid()}.tmp"
-    subprocess.run(["make", "-C", _NATIVE_DIR, f"LIB={tmp}"], check=True,
-                   capture_output=True)
-    os.replace(os.path.join(_NATIVE_DIR, tmp), _LIB_PATH)
+    """Compile the library under a name of this process, then move it
+    into place in one step, so a process loading it meanwhile never
+    reads a half-written file. A failed build raises."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f".{LIB_PATH.name}.{os.getpid()}.tmp"
+    cmd = ["g++", *CXX_FLAGS, "-o", str(tmp),
+           *(str(SRC_DIR / f) for f in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed building the native runtime (exit "
+                           f"{proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, LIB_PATH)
 
 
 def load_runtime() -> ctypes.CDLL:
@@ -43,9 +60,9 @@ def load_runtime() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        if not os.path.exists(_LIB_PATH):
+        if _stale():
             _build()
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(str(LIB_PATH))
         lib.udt_open.argtypes = [ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
         lib.udt_open.restype = ctypes.c_int
         lib.udt_send.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]

@@ -13,10 +13,11 @@ Timing (`measure`) reports, for one callable:
   `torch.profiler` (where the caller asks for it; a profile of a
   per-frame loop takes seconds to read); busy is the sum of the
   device-side events, the launches are its kernels (copies and memsets
-  apart), the idle share is 1 − busy / the median wall time. The
-  profiler does not see K1, which its ctypes-loaded library launches
-  through its own static CUDA runtime; where it sees no device event at
-  all, busy and idle share are None.
+  apart), the idle share is 1 − busy / the median wall time. Whether
+  the profiler sees K1, which its ctypes-loaded library launches
+  through its own static CUDA runtime, has varied between card
+  machines: `k1_profiled` counts the K1 launches it saw. Where it sees
+  no device event at all, busy and idle share are None.
 
 On the CPU only the wall times are reported.
 """
@@ -155,6 +156,8 @@ def profile_once(fn: Callable[[], object]) -> dict:
             "device_events": sum(e.count for e in dev),
             "launches": sum(e.count for e in dev
                             if not e.key.startswith(("Memcpy", "Memset"))),
+            "k1_profiled": sum(e.count for e in dev
+                               if "resample_kernel" in e.key),
             "top": [{"name": e.key[:70], "count": e.count,
                      "ms": e.self_device_time_total / 1e3} for e in top],
             "host_top": [{"name": e.key[:70], "count": e.count,
@@ -191,6 +194,7 @@ def measure(fn: Callable[[], object], device: torch.device, reps: int = 5,
         prof = profile_once(fn)
         busy = prof["busy_ms"] if prof["device_events"] else None
         out.update(busy_ms=busy, launches=prof["launches"],
+                   k1_profiled=prof["k1_profiled"],
                    device_events=prof["device_events"],
                    idle_share=None if busy is None
                    else 1 - busy / out["wall_ms"])

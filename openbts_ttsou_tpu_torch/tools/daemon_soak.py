@@ -22,19 +22,28 @@ late; `--warmup` must cover them for the timed window to be clean.
 Prints one JSON line: ms a GSM frame over the timed window (the air
 takes 4.615), detections, datagram counts, and the stale and underrun
 counts of the timed window. `realtime` holds only when the frame time
-beats the air and no burst was late or dumped.
+beats the air and no burst was late or dumped. The stub reads the frame
+number of every uplink datagram, so the record also counts the timed
+window's uplink: the frames of the blocks dispatched in it must each
+bring one datagram a loaded slot a carrier, and `uplink_lost_timed`
+says how many did not arrive.
 
     python -m openbts_ttsou_tpu_torch.tools.daemon_soak --carriers 8 \\
         --block-frames 26 --blocks 10 --warmup 6
 
-`select()` in the native UDP transport takes descriptors below
-FD_SETSIZE (1024) only; the soak holds 2n + 1 stub and 3n + 1 daemon
-sockets (and n bus sockets with `--bus socket`), and refuses a carrier
-count whose descriptors would reach 1024.
+The soak holds 2n + 1 stub and 2n + 1 daemon sockets of the native
+transport (the daemon's span 3n + 1 ports) and, with `--bus socket`, n
+bus sockets in one process: past FD_SETSIZE (1024) from 256 carriers,
+which the port's transport takes (it waits with `poll()`). It raises
+the soft RLIMIT_NOFILE as far as the hard limit allows, refuses a
+carrier count that the hard limit or the transport's handle table
+(`HANDLE_TABLE`) cannot hold, and reports `largest_fd`.
 """
 
 from __future__ import annotations
 
+import collections
+import resource
 import subprocess
 import sys
 import time
@@ -48,8 +57,13 @@ from openbts_ttsou_tpu_torch.tools import common
 from openbts_ttsou_tpu_torch.trx import protocol as proto
 from openbts_ttsou_tpu_torch.utils.gsm_time import HYPERFRAME, fn_compare
 
-FD_SETSIZE = 1024
 TOOL = "daemon_soak"
+#: sockets the native transport's handle table holds (`kMax` of
+#: csrc/runtime/udp_transport.cpp)
+HANDLE_TABLE = 8192
+#: descriptors kept free beside the soak's sockets (files, pipes, the
+#: CUDA runtime's own)
+FD_SPARE = 64
 
 
 def parse_args(argv=None):
@@ -132,6 +146,7 @@ class BtsStub:
         self.beacons = 0
         self.fed = 0  # downlink datagrams sent
         self.received = 0  # uplink datagrams drained
+        self.uplink_fn = collections.Counter()  # uplink datagrams a frame
 
     def on_beacon(self, fn: int) -> None:
         """Follow IND CLOCK: move the feed cursor forward to a beacon
@@ -158,23 +173,50 @@ class BtsStub:
         self.cursor = (self.cursor + bits.shape[0]) % HYPERFRAME
 
     def drain(self) -> int:
-        got = sum(self.data[i].drain_fixed(proto.UPLINK_LEN, 4096).shape[0]
-                  for i in range(self.n))
+        got = 0
+        for i in range(self.n):
+            pkts = self.data[i].drain_fixed(proto.UPLINK_LEN, 4096)
+            if len(pkts):
+                # bytes 1-4 of an uplink datagram: its frame number
+                fns = pkts[:, 1:5].copy().view(">u4").ravel()
+                self.uplink_fn.update(fns.tolist())
+                got += len(pkts)
         self.received += got
         return got
+
+    def uplink_in(self, fn0: int, frames: int) -> int:
+        """Uplink datagrams drained for frames fn0 .. fn0 + frames − 1
+        (modulo the hyperframe)."""
+        return sum(self.uplink_fn[(fn0 + k) % HYPERFRAME]
+                   for k in range(frames))
 
     def close(self) -> None:
         for s in (self.clock, *self.ctrl, *self.data):
             s.close()
 
 
-def _check_descriptors(n: int, socket_bus: bool) -> None:
-    need = (2 * n + 1) + (3 * n + 1) + (n if socket_bus else 0)
-    if common.largest_fd() + need >= FD_SETSIZE:
+def _check_descriptors(n: int, socket_bus: bool) -> int:
+    """Make room for the soak's sockets: the soft RLIMIT_NOFILE raised as
+    far as the hard limit allows. Raises ValueError where the hard limit
+    or the transport's handle table cannot hold them. Returns the
+    sockets needed."""
+    handles = 2 * (2 * n + 1)  # the stub's and the daemon's
+    need = handles + (n if socket_bus else 0)
+    if handles > HANDLE_TABLE:
         raise ValueError(
-            f"{n} carriers need {need} more sockets beside descriptor "
-            f"{common.largest_fd()}: the native UDP transport's select() "
-            f"takes descriptors below FD_SETSIZE ({FD_SETSIZE}) only")
+            f"{n} carriers need {handles} native sockets: more than the "
+            f"transport's handle table holds ({HANDLE_TABLE})")
+    want = common.largest_fd() + 1 + need + FD_SPARE
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if hard != resource.RLIM_INFINITY and want > hard:
+        raise ValueError(
+            f"{n} carriers need {need} sockets beside descriptor "
+            f"{common.largest_fd()}: more than the hard RLIMIT_NOFILE "
+            f"({hard}) allows")
+    if soft != resource.RLIM_INFINITY and soft < want:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (
+            hard if hard != resource.RLIM_INFINITY else want, hard))
+    return need
 
 
 def _start_bus_server(n: int, stim: np.ndarray, work) -> tuple:
@@ -251,10 +293,6 @@ def run(args, stub_cls=BtsStub) -> dict:
         stub = stub_cls(n, args.base_port, offset)
         opened.append(stub)
         fd_max = common.largest_fd()
-        if fd_max >= FD_SETSIZE:
-            raise ValueError(f"descriptor {fd_max} reaches FD_SETSIZE "
-                             f"({FD_SETSIZE}); the native transport's "
-                             f"select() cannot take it")
         record = _soak(args, daemon, stub)
     finally:
         for o in opened:
@@ -311,6 +349,7 @@ def _soak(args, daemon, stub) -> dict:
     common.log(TOOL, "warm-up done; timing")
     stale0, under0 = daemon.stale_dumped, daemon.underruns
     fed0, k1_0 = stub.fed, common.k1_launches()
+    fn0 = daemon.fn  # the first timed block's first uplink frame
     t0 = time.perf_counter()
     for _ in range(args.blocks):
         pump()
@@ -323,6 +362,8 @@ def _soak(args, daemon, stub) -> dict:
     k1_timed = common.k1_launches() - k1_0
     stub.drain()  # the flushed blocks' datagrams (loopback delivers at once)
     ms_frame = timed_s * 1e3 / (args.blocks * bf)
+    ul_want = args.blocks * bf * n * args.ul_slots
+    ul_timed = stub.uplink_in(fn0, args.blocks * bf)
     return {
         "tool": TOOL, "carriers": n, "block_frames": bf,
         "depth": args.depth, "compact": bool(args.compact),
@@ -335,6 +376,8 @@ def _soak(args, daemon, stub) -> dict:
         "downlink_fed": fed, "stale_fraction": stale / max(fed, 1),
         "uplink_datagrams": stub.received,
         "expected_uplink_per_block": bf * n * args.ul_slots,
+        "uplink_timed": ul_timed, "expected_uplink_timed": ul_want,
+        "uplink_lost_timed": ul_want - ul_timed,
         "downlink_datagrams": stub.fed, "clock_beacons": stub.beacons,
         "clock_lead": daemon.clock_lead,
         "k1_launches_timed": k1_timed,

@@ -37,22 +37,13 @@ K1_SHAPES = ((N_CHAN, 65, 96, 961, 24000), (N_CHAN, 96, 65, 651, 16250),
 
 def bound_ms(rows: int, t_in: int, p: int, q: int,
              lpf: np.ndarray) -> tuple[float, str]:
-    """Least time for K1's work on an H100: each input read once and
-    each output written once at the data-sheet HBM rate, against the
-    float32 FMAs of the nonzero taps each output uses (2 FMAs a tap,
-    real and imaginary) at the data-sheet float32 rate."""
-    from openbts_ttsou_tpu_torch.ops import cuda_fir, fir
+    """Least time for K1's work on an H100: `roofline.k1_work` (each
+    input read once and each output written once, the float32 FMAs of
+    the nonzero taps each output uses) at the data-sheet rates."""
+    from openbts_ttsou_tpu_torch.tools import roofline
 
-    n_out = fir.polyphase_output_len(t_in, p, q)
-    taps, _ = cuda_fir.branch_table(p, q, lpf.tobytes())
-    nnz = (taps != 0).sum(1)  # per branch
-    per_out = nnz[np.arange(n_out) % p].sum()
-    flops = rows * per_out * 4.0
-    nbytes = rows * (t_in + n_out) * 8.0
-    t_bytes = nbytes / common.HBM_BYTES_PER_S
-    t_ops = flops / common.FP32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return roofline.bound_ms(roofline.k1_work(rows, t_in, p, q, lpf),
+                             common.HBM_BYTES_PER_S, common.FP32_FLOPS)
 
 
 def library_call(x: torch.Tensor, p: int, q: int, lpf: np.ndarray):

@@ -50,8 +50,7 @@ MORE = [
     (32, 1, 2, 8, 26, 2, "replay", "sparse load at 32 carriers"),
     (64, 1, 2, 16, 26, 2, "replay", "sparse load at 64 carriers"),
     (128, 1, 2, 32, 26, 2, "replay",
-     "sparse load at 128 carriers, the largest row (the native transport's "
-     "select() caps one process near 200)"),
+     "sparse load at 128 carriers, the JAX sweep's largest row"),
     (8, 1, 3, -1, 26, 2, "socket",
      "radios behind a bus-server process (SocketBus across a process "
      "boundary, where libusb would sit); ms a frame and bus MB/s"),

@@ -429,7 +429,8 @@ def test_bts_stack_imports_no_jax():
     """Every module of the port (walked with pkgutil, so later modules are
     covered too: the BTS stack, the sharded pipelines and their entry
     points, smqueue, the utilities and the tools) imports torch and
-    numpy, never jax or the JAX package."""
+    numpy, never jax or the JAX package; and the native runtime it loads
+    is its own build, no library under the JAX package's `native/`."""
     code = ("import importlib, pkgutil, sys\n"
             "import openbts_ttsou_tpu_torch as pkg\n"
             "mods = [m.name for m in pkgutil.walk_packages(\n"
@@ -437,6 +438,10 @@ def test_bts_stack_imports_no_jax():
             "for m in mods:\n"
             "    importlib.import_module(m)\n"
             "need = {'openbts_ttsou_tpu_torch.tools.daemon_soak',\n"
+            "        'openbts_ttsou_tpu_torch.tools.roofline',\n"
+            "        'openbts_ttsou_tpu_torch.tools.collective_inventory',\n"
+            "        'openbts_ttsou_tpu_torch.tools.scaling_2proc',\n"
+            "        'openbts_ttsou_tpu_torch.runtime.native',\n"
             "        'openbts_ttsou_tpu_torch.smqueue.__main__',\n"
             "        'openbts_ttsou_tpu_torch.parallel.worker'}\n"
             "assert need <= set(mods), need - set(mods)\n"
@@ -444,11 +449,17 @@ def test_bts_stack_imports_no_jax():
             "k.startswith(('jax.', 'jaxlib', 'openbts_ttsou_tpu.')) or "
             "k == 'openbts_ttsou_tpu')\n"
             "assert not bad, bad\n"
+            "from openbts_ttsou_tpu_torch.runtime import UdpTransport\n"
+            "UdpTransport(0).close()\n"
+            f"jax_native = {str(ROOT / 'native')!r} + '/'\n"
+            "maps = open('/proc/self/maps').read()\n"
+            "assert 'build/native/libtrx_runtime.so' in maps\n"
+            "assert jax_native not in maps, jax_native\n"
             "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 80
+    assert int(out.stdout.split()[-1]) >= 83
 
 
 # ---- L3: the CC message types, and parity with the JAX codecs ---------------

@@ -80,10 +80,19 @@ def test_stub_cursor_moves_forward_only(cursor, beacon, after):
     assert stub.cursor == after
 
 
-def test_soak_refuses_carriers_past_fd_setsize():
-    with pytest.raises(ValueError, match="FD_SETSIZE"):
-        daemon_soak._check_descriptors(250, socket_bus=False)
-    daemon_soak._check_descriptors(128, socket_bus=True)
+def test_soak_refuses_carriers_past_fd_setsize(monkeypatch):
+    """FD_SETSIZE no longer caps the soak (the port's transport waits with
+    poll()): 300 carriers, 1202 sockets, pass. A count that the
+    transport's handle table cannot hold is refused, and so is one past
+    the hard RLIMIT_NOFILE; each refusal says which."""
+    assert daemon_soak._check_descriptors(300, socket_bus=False) == 1202
+    assert daemon_soak._check_descriptors(128, socket_bus=True) == 642
+    with pytest.raises(ValueError, match="handle table"):
+        daemon_soak._check_descriptors(2100, socket_bus=False)
+    monkeypatch.setattr(daemon_soak.resource, "getrlimit",
+                        lambda what: (1024, 1024))
+    with pytest.raises(ValueError, match="hard RLIMIT_NOFILE"):
+        daemon_soak._check_descriptors(300, socket_bus=False)
 
 
 def test_soak_sweep_runs_rows_as_processes(tmp_path, monkeypatch):
@@ -182,7 +191,8 @@ ALL_TOOLS = {
     "kernel_bakeoff": [], "kernel_probe": [], "stage_bench": [],
     "exact_bakeoff": [], "dfe_cost_probe": [], "encode_stage_probe": [],
     "scaling_bench": [], "iq_tool": ["replay"], "trx_ping": [],
-    "send_simple": ["2222", "hi"], "sweep_generator": []}
+    "send_simple": ["2222", "hi"], "sweep_generator": [], "roofline": [],
+    "collective_inventory": [], "scaling_2proc": []}
 
 
 @pytest.mark.parametrize("name", sorted(ALL_TOOLS))
