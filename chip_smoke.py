@@ -114,7 +114,14 @@ prints no result):
     `trx_ping` against `python -m openbts_ttsou_tpu_torch.trx.daemon
     --device cuda` (every verb answered); `transfer_probe`. Phase 2
     times K1 through `tools/kernel_bakeoff.py`, phase 18 also at the
-    128-carrier soak's two shapes.
+    128-carrier soak's two shapes;
+19. the bench (`python -m openbts_ttsou_tpu_torch.bench`, each run its own
+    process): `tools.bench_sweep --quick` (the five modes at 128
+    carriers, the sweep's iters, one rep) and the default run (exact @512,
+    BENCH_ITERS=4: 8 blocks counting 6,656 detections each), every row
+    a positive rate with K1 launched 1 + 1 or 2 a block over the blocks
+    it ran; then `entry()` (one `rx_step` at 4 carriers) on the card
+    against the CPU.
 
 Earlier lines are JSON records (the last of them each phase's wall time,
 then the kernels line); the line before the last is the card's name and
@@ -125,6 +132,7 @@ from __future__ import annotations
 
 import collections
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -133,6 +141,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+# the bench recipe (bench.py:162-195) at the symbol rate, and the radio's
+# int16 I/Q format
+from openbts_ttsou_tpu_torch.bench import bench_symbols, to_i16
 
 N_CHAN = 512
 BLOCKS = 3
@@ -223,28 +235,6 @@ def phase_kernels() -> dict:
 
 # ---- phase 3 ---------------------------------------------------------------
 
-def bench_symbols(frames: int) -> np.ndarray:
-    """The bench recipe (bench.py:162-195) at the symbol rate: noise σ 10
-    with a TSC-0 burst of amplitude 9000 at symbol f·1250+157 of every
-    frame, [N_CHAN, frames·1250] complex64."""
-    from openbts_ttsou_tpu_torch.ops import gmsk
-    from openbts_ttsou_tpu_torch.utils import constants as C
-
-    rng = np.random.default_rng(0)
-    n = frames * 1250
-    sym = (rng.standard_normal((N_CHAN, n))
-           + 1j * rng.standard_normal((N_CHAN, n))
-           ).astype(np.complex64) * 10.0
-    bits = np.concatenate(
-        [[0, 0, 0], rng.integers(0, 2, 57), [1], C.TRAINING_SEQUENCE[0], [1],
-         rng.integers(0, 2, 57), [0, 0, 0]]).astype(np.uint8)
-    wave = 9000.0 * gmsk.modulate_burst_np(bits[None], 1)[0]
-    for f in range(frames):
-        off = f * 1250 + 157
-        sym[:, off: off + 148] += wave
-    return sym
-
-
 def to_device_rate(sym: np.ndarray) -> torch.Tensor:
     """Symbol-rate stream → device rate on the card, by K1 at 96/65 ·
     651 taps."""
@@ -256,15 +246,8 @@ def to_device_rate(sym: np.ndarray) -> torch.Tensor:
 
 def bench_samples(spec) -> torch.Tensor:
     """One block of the bench recipe at the device rate."""
-    dev = to_device_rate(bench_symbols(spec.frames))
+    dev = to_device_rate(bench_symbols(N_CHAN, spec.frames))
     return dev[:, : spec.block_in].contiguous()
-
-
-def to_i16(x: torch.Tensor) -> torch.Tensor:
-    """complex64 [..., T] → int16 I/Q [..., T, 2], the radio's ADC
-    format (rounded half to even, clipped like USRPifyVector)."""
-    iq = torch.stack([x.real, x.imag], -1)
-    return torch.clamp(torch.round(iq), -32767.0, 32767.0).to(torch.int16)
 
 
 def from_i16(x: torch.Tensor) -> torch.Tensor:
@@ -564,7 +547,7 @@ def phase_duplex() -> dict:
     # phase 3's block repeated as one periodic stream (its known answer
     # holds for that noise draw), BLOCKS blocks and one more frame for
     # the last block's right halo
-    sym = np.tile(bench_symbols(f), (1, BLOCKS + 1))
+    sym = np.tile(bench_symbols(N_CHAN, f), (1, BLOCKS + 1))
     dev = to_device_rate(sym[:, : (BLOCKS * f + 1) * 1250])
     del sym
     ul = to_i16(dev[:, : BLOCKS * t_in + halo])
@@ -2457,7 +2440,7 @@ SHARD_SMALL_CHAN = 8  # phase 16: card against CPU
 def sharded_stream(steps: int) -> torch.Tensor:
     """The uplink main path's stream (the bench recipe) over `steps`
     steps of the (2, 2) mesh at the device rate, on the card."""
-    return to_device_rate(bench_symbols(steps * 2 * SHARD_FRAMES))
+    return to_device_rate(bench_symbols(N_CHAN, steps * 2 * SHARD_FRAMES))
 
 
 def compare_rx(got, want, frames: slice, what: str) -> None:
@@ -3119,11 +3102,129 @@ def tools_last(out: dict, sharded_traffic: dict) -> None:
     out["scaling_2proc"] = sc
 
 
+# ---- phase 19: the bench ----------------------------------------------------
+
+BENCH_ITERS = 4  # the default bench (exact @512): its best 2k run is 8 blocks
+
+
+def check_bench_row(r: dict, what: str) -> dict:
+    """A bench record: a positive rate, no error, the card's fields, and
+    K1 launched once for the stimulus and its mode's count a block over
+    every block the bench ran, each launch at a shape the record gives.
+    Returns those shapes, {(rows, T, p, q, taps): launches}."""
+    from openbts_ttsou_tpu_torch.bench import K1_PER_BLOCK
+
+    check("error" not in r and r.get("value", 0) > 0,
+          f"bench {what}: {r.get('error')}")
+    d = r["detail"]
+    check_card_fields(d, f"bench {what}")
+    want = 1 + K1_PER_BLOCK[d["mode"]] * d["blocks_total"]
+    check(d["k1_launches"] == want,
+          f"bench {what}: K1 launched {d['k1_launches']} times, expected "
+          f"{want} (1 + {K1_PER_BLOCK[d['mode']]} a block × "
+          f"{d['blocks_total']} blocks)")
+    shapes = {tuple(json.loads(k)): n for k, n in d["k1_shapes"].items()}
+    check(sum(shapes.values()) == d["k1_launches"]
+          and {k[0] for k in shapes} == {d["n_chan"]},
+          f"bench {what}: K1 launched {d['k1_launches']} times, "
+          f"{sum(shapes.values())} at recorded shapes {sorted(shapes)}")
+    return shapes
+
+
+def phase_bench() -> dict:
+    """Phase 19: the port's benchmark program on the card, each bench run
+    its own process. `python -m openbts_ttsou_tpu_torch.tools.bench_sweep
+    --quick` (the five modes at 128 carriers, the JAX sweep's iters rule,
+    BENCH_REPS=1: a downlink block takes ~1.3 ms there, so fewer than 32
+    blocks leave t(2k) − t(k) under the bench's 0.02 s noise guard); the
+    default `python -m openbts_ttsou_tpu_torch.bench` (exact @512) at
+    BENCH_ITERS=4, whose best 2k run of 8 blocks must count phase 3's
+    6,656 detections a block; every row's K1 launches (counted in its own
+    process) equal to its mode's count, each launch at a shape the row
+    records; K1 held against its plain form at every such shape and at
+    each mode's shapes at every width of the full sweep (8 to 1024
+    rows: the kernel's grid changes with the rows); and `entry()` on the
+    card equal to `entry()` on the CPU."""
+    from openbts_ttsou_tpu_torch import entry
+    from openbts_ttsou_tpu_torch.tools.bench_sweep import GRID
+
+    out = {"phase": "bench", "seconds": {}}
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "openbts_ttsou_tpu_torch.tools.bench_sweep",
+         "--quick", "--timeout", "300", "--out",
+         str(ROOT / "build" / "tools" / "phase19_sweep.json")],
+        cwd=ROOT, env={**env, "BENCH_REPS": "1"}, capture_output=True,
+        text=True, timeout=900)
+    out["seconds"]["sweep_quick"] = time.perf_counter() - t0
+    lines = p.stdout.strip().splitlines()
+    sweep = json.loads(lines[-1]) if lines else {"rows": []}
+    check(p.returncode == 0 and sweep.get("ok") and len(sweep["rows"]) == 5,
+          f"bench_sweep --quick exited {p.returncode}: {sweep['rows']} "
+          f"{p.stderr[-2000:]}")
+    shapes, by_mode = set(), {}
+    for r in sweep["rows"]:
+        seen = check_bench_row(r, f"{r['mode']} @ {r['carriers']}")
+        shapes |= set(seen)
+        by_mode[r["mode"]] = {k[1:] for k in seen}
+        schedule = None if r["mode"] == "downlink" else "batched"
+        check(r["detail"]["exact_schedule"] == schedule,
+              f"bench {r['mode']} @ 128: schedule "
+              f"{r['detail']['exact_schedule']}")
+    out["sweep_quick"] = sweep["rows"]
+
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "openbts_ttsou_tpu_torch.bench"],
+                       cwd=ROOT, env={**env, "BENCH_ITERS": str(BENCH_ITERS)},
+                       capture_output=True, text=True, timeout=600)
+    out["seconds"]["bench_default"] = time.perf_counter() - t0
+    check(p.returncode == 0, f"bench exited {p.returncode}: "
+                             f"{p.stderr[-2000:]}")
+    rec = json.loads(p.stdout.strip().splitlines()[-1])
+    shapes |= set(check_bench_row(rec, "exact @512"))
+    d = rec["detail"]
+    check(d["mode"] == "exact" and d["n_chan"] == N_CHAN
+          and d["blocks_run"] == 2 * BENCH_ITERS
+          and d["exact_schedule"] == "frames", f"bench default: {d}")
+    want = 13 * N_CHAN * 2 * BENCH_ITERS
+    check(d["detections_run"] == want,
+          f"bench exact @512: {d['detections_run']} detections in "
+          f"{d['blocks_run']} blocks, expected {want}")
+    out["bench_default"] = rec
+
+    t0 = time.perf_counter()
+    shapes |= {(c, *k) for mode, c, _ in GRID for k in by_mode[mode]}
+    out["k1_checked"] = check_k1_shapes(shapes)
+    out["seconds"]["k1_checked"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        fn, (state, frame) = entry.entry(dev)
+        runs[dev] = fn(state, frame)
+    out["seconds"]["entry"] = time.perf_counter() - t0
+    (sg, rg), (sc, rc) = runs["cuda"], runs["cpu"]
+    for name in ("detected", "is_rach", "rssi", "timing"):
+        check(torch.equal(getattr(rg, name).cpu(), getattr(rc, name)),
+              f"entry: card and CPU differ in {name}")
+    err = float((rg.soft_bits.cpu() - rc.soft_bits).abs().max())
+    check(err <= 2e-4, f"entry: soft bits differ by {err}")
+    check_states(sg, sc, "entry")
+    out["entry"] = {"soft_bits_max_abs_err": err,
+                    "detected": int(rg.detected.sum())}
+
+    out["launches"] = {"polyphase_resample": sum(
+        r["detail"]["k1_launches"] for r in sweep["rows"] + [rec])}
+    record(out)
+    return out
+
+
 def kernels_line(kern: dict, launches: dict) -> dict:
     """The `kernels` record: K1 at the uplink shape, every shape's times
     beside its bound, and its launches on each main path (uplink,
-    duplex, daemon, ..., sharded, soak, tools), each counted from zero
-    over that path's run."""
+    duplex, daemon, ..., sharded, soak, tools, bench), each counted
+    from zero over that path's run (bench: in each bench process)."""
     from openbts_ttsou_tpu_torch.tools.kernel_bakeoff import K1_SHAPES
 
     rows, p, q, _, t_in = K1_SHAPES[0]
@@ -3189,6 +3290,7 @@ def main() -> int:
     timed("distributed", phase_distributed)
     tools = timed("tools", phase_tools,
                   sharded["traffic_bytes_per_step"])
+    bench = timed("bench", phase_bench)
     record({"phase": "wall", "phase_s": phase_s,
             "total_s": time.perf_counter() - t_start})
 
@@ -3198,7 +3300,7 @@ def main() -> int:
                 "uplink_decoded": uplink_decoded["launches"],
                 "usrp_bus": bus["launches"], "bts": bts["launches"],
                 "sharded": sharded["launches"], "soak": tools["launches"],
-                "tools": tools["tools_launches"]}
+                "tools": tools["tools_launches"], "bench": bench["launches"]}
     print(json.dumps(kernels_line(kern, launches)), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

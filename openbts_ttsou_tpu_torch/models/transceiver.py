@@ -93,11 +93,17 @@ def process_block_frames(cfg: eng.TrxConfig, frames: int,
     return state, eng.RxResult(*(torch.stack(f) for f in zip(*results)))
 
 
+def exact_schedule(n_chan: int) -> str:
+    """The exact receiver's schedule at `n_chan` carriers: "batched"
+    (`process_block_exact`) or "frames" (`process_block_frames`)."""
+    return "batched" if n_chan <= EXACT_BATCH_MAX_CHAN else "frames"
+
+
 def _exact_rx(cfg: eng.TrxConfig, frames: int, state: eng.TrxState,
               sym: torch.Tensor) -> tuple[eng.TrxState, eng.RxResult]:
     """Exact-semantics window receiver; the schedule follows
     EXACT_BATCH_MAX_CHAN."""
-    if cfg.n_chan <= EXACT_BATCH_MAX_CHAN:
+    if exact_schedule(cfg.n_chan) == "batched":
         return process_block_exact(cfg, frames, state, sym)
     return process_block_frames(cfg, frames, state, sym)
 

@@ -110,6 +110,31 @@ def k1_launches() -> int:
 
 
 @contextlib.contextmanager
+def k1_shapes() -> Iterator[dict]:
+    """K1's launch shapes while the block runs: {(rows, T, p, q, taps):
+    calls} of `ops.fir.polyphase_resample` on CUDA tensors (the entry
+    the transceiver calls; on the CPU it runs the plain form). Their sum
+    falls short of the launch count's delta where a launch bypasses that
+    entry."""
+    from openbts_ttsou_tpu_torch.ops import fir
+
+    seen: dict = {}
+    resample = fir.polyphase_resample
+
+    def resample_seen(x, p, q, lpf):
+        if x.is_cuda:
+            key = (x.numel() // x.shape[-1], x.shape[-1], p, q, len(lpf))
+            seen[key] = seen.get(key, 0) + 1
+        return resample(x, p, q, lpf)
+
+    fir.polyphase_resample = resample_seen
+    try:
+        yield seen
+    finally:
+        fir.polyphase_resample = resample
+
+
+@contextlib.contextmanager
 def deadline(seconds: float, what: str) -> Iterator[None]:
     """Raise TimeoutError in the main thread if the block runs past
     `seconds` (no limit when 0)."""

@@ -438,6 +438,9 @@ def test_bts_stack_imports_no_jax():
             "for m in mods:\n"
             "    importlib.import_module(m)\n"
             "need = {'openbts_ttsou_tpu_torch.tools.daemon_soak',\n"
+            "        'openbts_ttsou_tpu_torch.bench',\n"
+            "        'openbts_ttsou_tpu_torch.entry',\n"
+            "        'openbts_ttsou_tpu_torch.tools.bench_sweep',\n"
             "        'openbts_ttsou_tpu_torch.tools.roofline',\n"
             "        'openbts_ttsou_tpu_torch.tools.collective_inventory',\n"
             "        'openbts_ttsou_tpu_torch.tools.scaling_2proc',\n"

@@ -565,3 +565,38 @@ def test_daemon_soak_on_card_has_no_stale_burst(card):
     assert rec["stale_dumped"] == 0 and rec["underruns"] == 0
     assert rec["uplink_datagrams"] >= 26 * 2 * 7 * 2
     assert rec["k1_launches"] == 2 * rec["blocks_run"]
+
+
+# ---- the bench on the card ----------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["exact", "duplex"])
+def test_bench_steps_on_card_match_cpu(card, mode):
+    """The bench's stimulus and 2 blocks of its step at 8 carriers on the
+    card and on the CPU: per-block counts equal, probes within the soft
+    bits' 2e-4 (exact) or ±1 a quantized value (duplex), and K1 launched
+    once for the stimulus and once (exact) or twice (duplex) a block, each
+    launch seen by `common.k1_shapes` at 8 rows."""
+    from openbts_ttsou_tpu_torch import bench
+    from openbts_ttsou_tpu_torch.tools import common
+
+    c, n = 8, 2
+    cfg = eng.TrxConfig(n_chan=c)
+    spec = T.UplinkSpec()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        n0 = cuda_fir.polyphase_resample_cuda.launches
+        with common.k1_shapes() as shapes:
+            stim = bench.stimulus(c, dev, spec)
+            step, carry = bench.make_step(mode, cfg, spec,
+                                          bench.bench_state(cfg, dev), stim)
+            probes, counts = bench.run_blocks(step, carry, n)
+        runs[dev] = (probes.cpu().double(), counts.cpu(),
+                     cuda_fir.polyphase_resample_cuda.launches - n0, shapes)
+    (pg, cg, kg, sg), (pc, cc, kc, sc) = runs["cuda"], runs["cpu"]
+    assert torch.equal(cg, cc) and (cg == 13 * c).all()
+    assert kg == 1 + bench.K1_PER_BLOCK[mode] * n and kc == 0
+    assert sum(sg.values()) == kg and {k[0] for k in sg} == {c} and sc == {}
+    soft = 13 * c * 8
+    atol = soft * 2e-4 if mode == "exact" else soft + 2 * c
+    assert float((pg - pc).abs().max()) <= atol

@@ -192,7 +192,8 @@ ALL_TOOLS = {
     "exact_bakeoff": [], "dfe_cost_probe": [], "encode_stage_probe": [],
     "scaling_bench": [], "iq_tool": ["replay"], "trx_ping": [],
     "send_simple": ["2222", "hi"], "sweep_generator": [], "roofline": [],
-    "collective_inventory": [], "scaling_2proc": []}
+    "collective_inventory": [], "scaling_2proc": [],
+    "bench_sweep": ["--quick"]}
 
 
 @pytest.mark.parametrize("name", sorted(ALL_TOOLS))
