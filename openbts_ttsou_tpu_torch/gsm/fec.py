@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from openbts_ttsou_tpu_torch.utils import constants as C
-from openbts_ttsou_tpu_torch.utils.tables import device_table
+from openbts_ttsou_tpu_torch.utils.tables import copy_table, device_table
 
 # ---------------------------------------------------------------------------
 # Parity / CRC (Generator + Parity)
@@ -292,7 +292,7 @@ def interleave_map_on(fn, device, *args) -> torch.Tensor:
 def _as_index(imap, device) -> torch.Tensor:
     if isinstance(imap, torch.Tensor):
         return imap.to(device=device, dtype=torch.int64)
-    return torch.from_numpy(np.asarray(imap, np.int64)).to(device)
+    return copy_table(np.asarray(imap, np.int64), device)
 
 
 def interleave(c: torch.Tensor, imap, num_bursts: int) -> torch.Tensor:

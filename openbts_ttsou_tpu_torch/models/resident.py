@@ -28,6 +28,7 @@ from openbts_ttsou_tpu_torch.gsm import l1fec
 from openbts_ttsou_tpu_torch.models import transceiver as M
 from openbts_ttsou_tpu_torch.trx import engine as eng
 from openbts_ttsou_tpu_torch.utils.gsm_time import HYPERFRAME
+from openbts_ttsou_tpu_torch.utils.profiling import span
 
 
 class ResidentL1:
@@ -81,6 +82,7 @@ class ResidentL1:
     def _dev(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
 
+    @span("l1.step")
     def step(self, ul_halo, dl_content, atten_db=None):
         """One 13-frame window.
 

@@ -39,7 +39,9 @@ from openbts_ttsou_tpu_torch.utils.gsm_time import (FRAME_SYMBOLS,
                                                     HYPERFRAME,
                                                     SLOT_SAMPLE_PATTERN,
                                                     fn_delta)
-from openbts_ttsou_tpu_torch.utils.tables import device_table, row_at
+from openbts_ttsou_tpu_torch.utils.profiling import span
+from openbts_ttsou_tpu_torch.utils.tables import (copy_table, device_table,
+                                                  row_at)
 
 
 class UplinkSpec(NamedTuple):
@@ -76,7 +78,7 @@ def _slot_windows(symbols: torch.Tensor, frames: int) -> torch.Tensor:
     starts = np.arange(frames)[:, None] * FRAME_SYMBOLS + offs[None, :]
     idx = starts[..., None] + np.arange(eng.SLOT_SAMPLES)  # [F, 8, 157]
     idx = np.minimum(idx, symbols.shape[-1] - 1)
-    win = symbols[:, torch.from_numpy(idx).to(symbols.device)]
+    win = symbols[:, copy_table(idx, symbols.device)]
     return win.movedim(0, 1)
 
 
@@ -88,7 +90,8 @@ def process_block_frames(cfg: eng.TrxConfig, frames: int,
     wins = _slot_windows(sym, frames)
     results = []
     for f in range(frames):
-        state, res = eng.rx_step(cfg, state, wins[f])
+        with span("rx.frame"):
+            state, res = eng.rx_step(cfg, state, wins[f])
         results.append(res)
     return state, eng.RxResult(*(torch.stack(f) for f in zip(*results)))
 
@@ -103,9 +106,10 @@ def _exact_rx(cfg: eng.TrxConfig, frames: int, state: eng.TrxState,
               sym: torch.Tensor) -> tuple[eng.TrxState, eng.RxResult]:
     """Exact-semantics window receiver; the schedule follows
     EXACT_BATCH_MAX_CHAN."""
-    if exact_schedule(cfg.n_chan) == "batched":
-        return process_block_exact(cfg, frames, state, sym)
-    return process_block_frames(cfg, frames, state, sym)
+    with span("rx.exact"):
+        if exact_schedule(cfg.n_chan) == "batched":
+            return process_block_exact(cfg, frames, state, sym)
+        return process_block_frames(cfg, frames, state, sym)
 
 
 def uplink_block(cfg: eng.TrxConfig, spec: UplinkSpec, state: eng.TrxState,
@@ -219,8 +223,9 @@ def process_block_exact(cfg: eng.TrxConfig, frames: int,
     # mid-window validity clear needs a TSC burst in the window)
     stale_ub = fn_delta(fns[-1], state.chan_estimate_fn) > 50  # [C,8]
     # host sync: the estimation/DFE-design gate
-    gate_est = bool((need_dfe[:, None] & (stale_ub | ~state.chan_valid
-                                          | is_tsc.any(0))).any())
+    with span("sync.est_gate"):
+        gate_est = bool((need_dfe[:, None] & (stale_ub | ~state.chan_valid
+                                              | is_tsc.any(0))).any())
 
     tsc_flat = state.tsc.repeat_interleave(8).repeat(f)
     det_tsc, chan_est, chan_off = xcorr.analyze_traffic_burst(
@@ -301,7 +306,9 @@ def process_block_exact(cfg: eng.TrxConfig, frames: int,
     # ---- demod + equalizer (batched, equalizer gated) ----------------
     soft_plain = gmsk_mod.demodulate_burst(bursts, sps, amplitude, toa)
     # host sync: the equalizer runs only when some burst needs it
-    if bool(use_dfe.any()):
+    with span("sync.dfe_gate"):
+        dfe_open = bool(use_dfe.any())
+    if dfe_open:
         soft_eq = dfe_mod.equalize_burst(bursts / amp_safe[:, None],
                                          toa - off_sel, sps, w_sel,
                                          b_sel)[:, :k]
@@ -354,7 +361,7 @@ def _assemble_stream(slots: torch.Tensor) -> torch.Tensor:
     idx = (np.arange(frames)[:, None, None] * FRAME_SYMBOLS
            + offs[None, :, None] + np.arange(eng.SLOT_SAMPLES)[None, None, :])
     idx = np.minimum(idx, frames * FRAME_SYMBOLS)
-    flat_idx = torch.from_numpy(idx.reshape(-1)).to(slots.device)
+    flat_idx = copy_table(idx.reshape(-1), slots.device)
     vals = slots.movedim(1, 0).reshape(c, -1)
     out = torch.zeros((c, frames * FRAME_SYMBOLS + 1, 2),
                       dtype=torch.float32, device=slots.device)
@@ -801,6 +808,7 @@ def uplink_block_decoded_stream(cfg: eng.TrxConfig, spec: UplinkSpec,
             torch.ones((), dtype=torch.bool, device=samples.device))
 
 
+@span("fec.decode")
 def decode_block(res: eng.RxResult, fn0, frames: int, bsic: int = 0,
                  prev_soft: torch.Tensor | None = None,
                  prev_valid: torch.Tensor | None = None,
@@ -985,6 +993,7 @@ class XcchTxCarry:
                             device=device))
 
 
+@span("fec.encode")
 def _encode_dl_window(cfg: eng.TrxConfig, spec: UplinkSpec,
                       state: eng.TrxState, frames184: torch.Tensor,
                       xcch_valid: torch.Tensor, speech: torch.Tensor,
@@ -1143,8 +1152,9 @@ def duplex_block_decoded(cfg: eng.TrxConfig, spec: UplinkSpec,
         cfg, spec, state, frames184, xcch_valid, speech, sp_valid, facch,
         fa_valid, tch_mask, tch_carry, fn0_dl, xcch_phase=xcch_phase,
         xcch_carry=xcch_carry, xcch_tns=xcch_tns, tch_tns=tch_tns)
-    slots = eng.tx_frames(cfg, state, bits, valid, atten_db)
-    sym = _assemble_stream(slots)
+    with span("tx.modulate"):
+        slots = eng.tx_frames(cfg, state, bits, valid, atten_db)
+        sym = _assemble_stream(slots)
     stream = torch.cat([tx_tail.to(sym.dtype), sym], -1)
     y = fir.polyphase_resample(stream, spec.q, spec.p,
                                fir.resampler_lpf(spec.q, spec.p, 651))
@@ -1222,6 +1232,7 @@ class Transceiver:
         self.state = self.state._replace(max_expected_delay=d)
 
     # -- data plane ----------------------------------------------------
+    @span("trx.uplink")
     def process_uplink(self, samples) -> eng.RxResult:
         samples = torch.as_tensor(samples, device=self.device)
         self.state, res = uplink_block(self.cfg, self.spec, self.state,

@@ -22,6 +22,7 @@ import torch
 
 from openbts_ttsou_tpu_torch.ops import fir, gmsk
 from openbts_ttsou_tpu_torch.utils import constants as C
+from openbts_ttsou_tpu_torch.utils.tables import copy_table
 
 PEAK_GRID_STEP = 1.0 / 1024.0  # reference precision (sigProcLib.cpp:688)
 PEAK_GRID_HALF = 1024  # search ±1 sample around the integer peak
@@ -196,7 +197,10 @@ def energy_detect(x: torch.Tensor, window: int, threshold):
     `window` samples vs threshold² (energyDetect, sigProcLib.cpp:916-932)."""
     w = min(window, x.shape[-1])
     avg = _abs2(x[..., :w]).mean(-1)
-    thr = torch.as_tensor(threshold, dtype=torch.float32, device=x.device)
+    if isinstance(threshold, torch.Tensor):
+        thr = threshold.to(device=x.device, dtype=torch.float32)
+    else:
+        thr = copy_table(threshold, x.device, torch.float32)
     return avg > thr * thr, avg
 
 
@@ -217,7 +221,7 @@ def _valley_power(corr: torch.Tensor, peak_int: torch.Tensor,
     form's position table does."""
     t = corr.shape[-1]
     p2 = _abs2(corr)
-    o = torch.as_tensor(offsets, device=corr.device)
+    o = copy_table(offsets, corr.device)
     idx = peak_int[..., None].to(torch.int64) + o
     ok = (idx >= 0) & (idx < t)
     inside = ((peak_int >= 0) & (peak_int < t))[..., None]
@@ -235,7 +239,7 @@ def detect_rach(burst: torch.Tensor, sps: int,
     peak-detect, test peak/RMS over the valley (symbols 57-107 after the
     peak). TOA is compensated by the template TOA + 8 symbols."""
     tmpl = rach_template(sps)
-    seq = torch.from_numpy(tmpl.sequence).to(burst.device)
+    seq = copy_table(tmpl.sequence, burst.device)
     corr = fir.correlate(burst, seq, fir.NO_DELAY)
     peak_val, peak_idx, _ = peak_detect(corr)
     peak_int = torch.round(peak_idx).to(torch.int32)
@@ -248,7 +252,7 @@ def detect_rach(burst: torch.Tensor, sps: int,
     t = corr.shape[-1]
     ok = (peak_idx >= 0) & (peak_idx <= t) & (count >= 2)
     detected = ok & (peak_to_mean > threshold)
-    gain = torch.tensor(tmpl.gain, dtype=torch.complex64, device=burst.device)
+    gain = copy_table(tmpl.gain, burst.device, torch.complex64)
     amplitude = torch.where(ok, peak_val / gain, 0.0).to(torch.complex64)
     toa = peak_idx - np.float32(tmpl.toa) - 8 * sps
     return Detection(detected, amplitude, toa, peak_to_mean)
@@ -288,16 +292,14 @@ def analyze_traffic_burst(burst: torch.Tensor, tsc, sps: int,
     dev = burst.device
     lead = burst.shape[:-1]
     if isinstance(tsc, (int, np.integer)):
-        seq = torch.from_numpy(seqs[tsc]).to(dev).expand(lead + seqs.shape[-1:])
-        gain = torch.tensor(complex(gains[tsc]), dtype=torch.complex64,
-                            device=dev)
-        tmpl_toa = torch.tensor(float(toas[tsc]), dtype=torch.float32,
-                                device=dev)
+        seq = copy_table(seqs[tsc], dev).expand(lead + seqs.shape[-1:])
+        gain = copy_table(complex(gains[tsc]), dev, torch.complex64)
+        tmpl_toa = copy_table(float(toas[tsc]), dev, torch.float32)
     else:
         tsc = tsc.to(torch.int64)
-        seq = torch.from_numpy(seqs).to(dev)[tsc]  # [..., L]
-        gain = torch.from_numpy(gains).to(dev)[tsc]
-        tmpl_toa = torch.from_numpy(toas).to(dev)[tsc]
+        seq = copy_table(seqs, dev)[tsc]  # [..., L]
+        gain = copy_table(gains, dev)[tsc]
+        tmpl_toa = copy_table(toas, dev)[tsc]
 
     if max_toa is None:
         span = TSC_SEGMENT_OFFSET * sps  # the 64M fixed ±10-symbol span

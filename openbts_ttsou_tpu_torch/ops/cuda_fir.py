@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from openbts_ttsou_tpu_torch.ops import fir
+from openbts_ttsou_tpu_torch.utils.tables import copy_table
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
@@ -172,8 +173,7 @@ def instantiation(p: int, q: int, lpf: np.ndarray) -> str:
 @functools.lru_cache(maxsize=None)
 def _device_plan(p: int, q: int, lpf_bytes: bytes, device: torch.device):
     plan = tile_plan(p, q, lpf_bytes)
-    return (torch.from_numpy(plan.taps).to(device),
-            torch.from_numpy(plan.wb).to(device))
+    return copy_table(plan.taps, device), copy_table(plan.wb, device)
 
 
 def polyphase_resample_cuda(x: torch.Tensor, p: int, q: int,

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from openbts_ttsou_tpu_torch.ops import fir, gmsk
+from openbts_ttsou_tpu_torch.utils.tables import copy_table
 
 
 def _design_dfe_batched(chan: torch.Tensor, snr: torch.Tensor, nf: int):
@@ -93,7 +94,7 @@ def equalize_burst(burst: torch.Tensor, toa: torch.Tensor, sps: int,
     x = gmsk.delay_vector(burst, -toa.to(torch.float32))
     pf = fir.convolve(x, feedforward, fir.CUSTOM, start=nf - 1, length=t)
 
-    rot = torch.from_numpy(gmsk.rotation(t, sps)).to(burst.device)
+    rot = copy_table(gmsk.rotation(t, sps), burst.device)
     rev = torch.conj_physical(rot)
     b = feedback.to(torch.complex64)
     hist = torch.zeros((bsz, nu), dtype=torch.complex64, device=burst.device)

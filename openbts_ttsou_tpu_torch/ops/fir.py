@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from openbts_ttsou_tpu_torch.utils.profiling import span
+
 # Span modes, mirroring ConvType (Transceiver/sigProcLib.h:41-48 + 52M CUSTOM).
 FULL_SPAN = "full"
 OVERLAP_ONLY = "overlap"
@@ -158,8 +160,9 @@ def polyphase_resample(x: torch.Tensor, p: int, q: int,
     """
     from openbts_ttsou_tpu_torch.ops import cuda_fir
 
-    if x.is_cuda:
-        return cuda_fir.polyphase_resample_cuda(x, p, q, lpf)
-    if x.device.type != "cpu":
-        raise ValueError(f"polyphase_resample: no kernel for {x.device}")
-    return cuda_fir.polyphase_resample_plain(x, p, q, lpf)
+    with span("k1.resample"):
+        if x.is_cuda:
+            return cuda_fir.polyphase_resample_cuda(x, p, q, lpf)
+        if x.device.type != "cpu":
+            raise ValueError(f"polyphase_resample: no kernel for {x.device}")
+        return cuda_fir.polyphase_resample_plain(x, p, q, lpf)

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from openbts_ttsou_tpu_torch.ops import fir
+from openbts_ttsou_tpu_torch.utils.tables import copy_table
 
 
 @functools.lru_cache(maxsize=None)
@@ -35,7 +36,7 @@ def rotation(n: int, sps: int) -> np.ndarray:
 
 
 def _rotation_t(n: int, sps: int, device) -> torch.Tensor:
-    return torch.from_numpy(rotation(n, sps)).to(device)
+    return copy_table(rotation(n, sps), device)
 
 
 def gmsk_rotate(x: torch.Tensor, sps: int) -> torch.Tensor:
@@ -64,7 +65,7 @@ def modulate_burst(bits: torch.Tensor, sps: int, guard_len: int = 0,
     x[..., : n * sps: sps] = 2.0 * bits.to(torch.float32) - 1.0
     rot = gmsk_rotate(x.to(torch.complex64), sps)
     if pulse is None:
-        pulse = torch.from_numpy(gsm_pulse(sps))
+        pulse = copy_table(gsm_pulse(sps), bits.device)
     return fir.convolve(rot, pulse.to(device=bits.device,
                                       dtype=torch.float32), fir.NO_DELAY)
 

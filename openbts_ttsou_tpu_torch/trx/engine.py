@@ -29,6 +29,8 @@ from openbts_ttsou_tpu_torch.utils import constants as C
 from openbts_ttsou_tpu_torch.utils.gsm_time import (HYPERFRAME,
                                                     SLOT_SAMPLE_PATTERN,
                                                     fn_delta)
+from openbts_ttsou_tpu_torch.utils.profiling import span
+from openbts_ttsou_tpu_torch.utils.tables import copy_table
 
 SLOT_SAMPLES = 157  # uniform per-slot sample window (1 sps), masked per TN
 CHAN_TAPS = 6  # channel estimate length in symbols (sigProcLib.cpp:1009)
@@ -228,7 +230,7 @@ def rach_allowed_mask(cfg: TrxConfig, corr_type: torch.Tensor) -> torch.Tensor:
         return torch.ones_like(corr_type, dtype=torch.bool)
     allowed = np.zeros(8, bool)
     allowed[list(cfg.rach_slots)] = True
-    allowed_t = torch.from_numpy(allowed).to(corr_type.device)
+    allowed_t = copy_table(allowed, corr_type.device)
     return ~((corr_type == CorrType.RACH) & ~allowed_t)
 
 
@@ -293,7 +295,8 @@ def rx_step(cfg: TrxConfig, state: TrxState, frame: torch.Tensor
         need_dfe[:, None]
     # host sync: the estimation/DFE-design gate (a CUDA graph must not
     # branch on device data)
-    est_open = bool(want_est.any())
+    with span("sync.est_gate"):
+        est_open = bool(want_est.any())
     det_tsc, chan_est, chan_off = xcorr.analyze_traffic_burst(
         bursts, tsc_flat, sps, threshold=cfg.tsc_threshold,
         estimate_channel=True, max_toa=cfg.max_toa,
@@ -370,7 +373,9 @@ def rx_step(cfg: TrxConfig, state: TrxState, frame: torch.Tensor
         new_state.chan_valid.reshape(-1)
     k = 148
     # host sync: the equalizer runs only when some burst needs it
-    if bool(use_dfe.any()):
+    with span("sync.dfe_gate"):
+        dfe_open = bool(use_dfe.any())
+    if dfe_open:
         soft_eq = dfe_mod.equalize_burst(
             bursts / amp_safe[:, None],
             toa - new_state.chan_resp_offset.reshape(-1), sps,
@@ -425,8 +430,7 @@ def tx_frames(cfg: TrxConfig, state: TrxState, bits: torch.Tensor,
         -atten_db.reshape(-1).to(torch.float32) / 10.0)
     mod = mod * scale.to(torch.float32)[:, None]
     # zero the samples past the true slot length (157/156/156/156)
-    slot_len = torch.tensor(SLOT_SAMPLE_PATTERN, dtype=torch.int64,
-                            device=dev) * sps
+    slot_len = copy_table(SLOT_SAMPLE_PATTERN, dev, torch.int64) * sps
     mask = (torch.arange(t, device=dev)[None, :]
             < slot_len.repeat(f * c)[:, None])
     mod = torch.where(mask, mod[:, :t], torch.zeros((), dtype=mod.dtype,

@@ -600,3 +600,71 @@ def test_bench_steps_on_card_match_cpu(card, mode):
     soft = 13 * c * 8
     atol = soft * 2e-4 if mode == "exact" else soft + 2 * c
     assert float((pg - pc).abs().max()) <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["frames", "batched", "estimate",
+                                  "resident"])
+def test_every_host_sync_is_inside_a_sync_span(card, monkeypatch, path):
+    """One warm call at 4 carriers under `set_sync_debug_mode("warn")`:
+    each host sync it makes happens inside a `sync.*` span, and the
+    call records as many such spans as it makes syncs. Paths: the
+    uplink's frame loop and batched schedule, the frame loop with the
+    channel estimate and DFE design open (max delay 5), and the
+    resident layer 1."""
+    import time
+    import warnings
+
+    from openbts_ttsou_tpu_torch.models.resident import ResidentL1
+    from openbts_ttsou_tpu_torch.utils import profiling
+
+    c = 4
+    torch.manual_seed(0)
+    if path == "resident":
+        layer = ResidentL1(eng.TrxConfig(n_chan=c), xcch_tns=(0, 1, 6, 7),
+                           tch_tns=(2, 3, 4, 5), device="cuda")
+        ul = torch.randn((c, layer.spec.block_in + 2 * T.RX_HALO_DEV),
+                         dtype=torch.complex64, device="cuda") * 10
+        content = layer.empty_content(np.ones((c, 8), bool))
+
+        def call():
+            return layer.step(ul, content)
+    else:
+        monkeypatch.setattr(T, "EXACT_BATCH_MAX_CHAN",
+                            c if path == "batched" else 0)
+        trx = T.Transceiver(eng.TrxConfig(n_chan=c), T.UplinkSpec(), "cuda")
+        for chan in range(c):
+            for tn in range(8):
+                trx.set_slot(chan, tn, 4 if tn == 0 else 1)
+            if path == "estimate":
+                trx.set_max_delay(chan, 5)
+        x = torch.randn((c, trx.spec.block_in), dtype=torch.complex64,
+                        device="cuda") * 10
+
+        def call():
+            return trx.process_uplink(x)
+    call()  # copies the tables kept on the device
+    torch.cuda.synchronize()
+    seen, in_call = [], [False]
+
+    def hook(message, *args, **kwargs):
+        if in_call[0] and "synchroniz" in str(message):
+            frames = profiling.RECORDER._stack.frames
+            seen.append(frames[-1][0] if frames and frames[-1] is not None
+                        else None)
+
+    t0 = time.perf_counter_ns()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            in_call[0] = True
+            call()
+            in_call[0] = False
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    spans = profiling.spans_between(t0, time.perf_counter_ns())
+    outside = [s for s in seen if not (s or "").startswith("sync.")]
+    assert seen and not outside, outside
+    assert len(seen) == sum(s[0].startswith("sync.") for s in spans)

@@ -37,7 +37,7 @@ def test_f16_raw_bits_equal_jax(a, b):
 
 def test_profiling_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(str(tmp_path / "t")) as prof:
-        with profiling.annotate("resample_region"):
+        with profiling.span("resample_region"):
             torch.ones(64).cumsum(0)
     trace = json.loads((tmp_path / "t" / "trace.json").read_text())
     names = {e.get("name") for e in trace["traceEvents"]}

@@ -1,0 +1,11 @@
+"""Host ms a window in the FEC encode leg: the program's `fec.encode`
+span (`_encode_dl_window`: XCCH, TCH/FS and FACCH encoding and
+interleaving) less the `sync.*` spans inside it, the mean over the
+window's calls (program spans, host clock, untraced). None where the
+program records no spans or its record of the window is incomplete."""
+
+from trxbench import spans
+
+
+def read(rec: dict):
+    return spans.host_ms_less_waits(rec, "fec.encode")
