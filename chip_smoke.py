@@ -324,8 +324,9 @@ def phase_profile(cfg, spec, trx, x, ms_block: float) -> dict:
     One more block under torch.profiler (`device_profile`, against the
     block's unprofiled wall time from phase 3). Then both exact schedules
     on one block from one entry state, timed and compared: the
-    frame-by-frame `rx_step` loop (the main path above 128 carriers) and
-    the batched `process_block_exact`."""
+    frame-by-frame `rx_step` loop (the main path above
+    `EXACT_BATCH_MAX_CHAN` carriers) and the batched
+    `process_block_exact` (the main path at 512)."""
     from openbts_ttsou_tpu_torch.models import transceiver as T
     from openbts_ttsou_tpu_torch.ops import fir
 
@@ -3146,6 +3147,7 @@ def phase_bench() -> dict:
     rows: the kernel's grid changes with the rows); and `entry()` on the
     card equal to `entry()` on the CPU."""
     from openbts_ttsou_tpu_torch import entry
+    from openbts_ttsou_tpu_torch.models import transceiver as T
     from openbts_ttsou_tpu_torch.tools.bench_sweep import GRID
 
     out = {"phase": "bench", "seconds": {}}
@@ -3186,7 +3188,8 @@ def phase_bench() -> dict:
     d = rec["detail"]
     check(d["mode"] == "exact" and d["n_chan"] == N_CHAN
           and d["blocks_run"] == 2 * BENCH_ITERS
-          and d["exact_schedule"] == "frames", f"bench default: {d}")
+          and d["exact_schedule"] == T.exact_schedule(N_CHAN),
+          f"bench default: {d}")
     want = 13 * N_CHAN * 2 * BENCH_ITERS
     check(d["detections_run"] == want,
           f"bench exact @512: {d['detections_run']} detections in "

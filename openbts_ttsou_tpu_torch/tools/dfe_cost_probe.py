@@ -68,9 +68,7 @@ def main(argv=None) -> dict:
     rows = []
     for n_chan in (int(c) for c in args.carriers.split(",")):
         cfg, spec, x, states = legs(n_chan, FRAMES, dev)
-        row = {"carriers": n_chan,
-               "schedule": ("batched" if n_chan <= T.EXACT_BATCH_MAX_CHAN
-                            else "frames")}
+        row = {"carriers": n_chan, "schedule": T.exact_schedule(n_chan)}
         for mode, st in states.items():
             row[mode] = common.measure(
                 lambda: T.uplink_block(cfg, spec, st, x), dev,

@@ -335,9 +335,7 @@ def block_row(n_chan: int, dev: torch.device, hbm: float,
     t = _timed(lambda: transceiver.uplink_block(cfg, spec, states["on"], x),
                dev)
     row = {"carriers": n_chan, "mode": "exact", "max_toa": cfg.max_toa,
-           "schedule": ("batched"
-                        if n_chan <= transceiver.EXACT_BATCH_MAX_CHAN
-                        else "frames"),
+           "schedule": transceiver.exact_schedule(n_chan),
            "gflop_per_block": w.flops / 1e9, "mb_per_block": w.bytes / 1e6,
            "arith_intensity_flop_per_byte": w.flops / w.bytes,
            "bound_ms": b, "bound_by": by,

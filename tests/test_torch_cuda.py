@@ -668,3 +668,25 @@ def test_every_host_sync_is_inside_a_sync_span(card, monkeypatch, path):
     outside = [s for s in seen if not (s or "").startswith("sync.")]
     assert seen and not outside, outside
     assert len(seen) == sum(s[0].startswith("sync.") for s in spans)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_delay", [0, 5])
+def test_exact_schedules_agree_at_512_carriers(card, max_delay):
+    """`process_block_exact` and `process_block_frames` from one entry
+    state on the bake-off's block at 512 carriers, with the DFE off and
+    on (max delay 5: the gated estimate, the DFE design and the
+    equalizer): equal detections, RACH flags, RSSI and timing, soft bits
+    within 2e-4, an equal integer state and every float state field
+    within 1e-6 of its largest value, the benchmark's limits."""
+    from openbts_ttsou_tpu_torch.tools import exact_bakeoff
+
+    c = 512
+    cfg, st, sym = exact_bakeoff.block(c, 13, torch.device("cuda"),
+                                       max_delay)
+    a = T.process_block_exact(cfg, 13, st, sym)
+    b = T.process_block_frames(cfg, 13, st, sym)
+    torch.cuda.synchronize()
+    exact_bakeoff.assert_same(a, b, c)
+    assert int(b[1].detected.sum()) == 13 * c
+    assert bool(b[0].chan_valid[:, 1].all()) == (max_delay > 1)

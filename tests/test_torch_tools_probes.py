@@ -105,6 +105,31 @@ def test_exact_bakeoff_catches_a_difference():
         exact_bakeoff.assert_same(a, (b[0], bad), 2)
 
 
+@pytest.mark.parametrize("max_delay", [0, 5])
+def test_exact_bakeoff_holds_the_float_state(max_delay):
+    """Both schedules end in float states within the benchmark's 1e-6
+    (relative to each field's largest value, at least 1), with the DFE
+    off and on (max delay 5: the gated estimate and the equalizer); a
+    gap past that limit in any float field is caught."""
+    from openbts_ttsou_tpu_torch.models import transceiver as T
+
+    cfg, st, sym = exact_bakeoff.block(2, 13, CPU, max_delay)
+    a = T.process_block_exact(cfg, 13, st, sym)
+    b = T.process_block_frames(cfg, 13, st, sym)
+    exact_bakeoff.assert_same(a, b, 2)
+    assert bool(b[0].chan_valid.any()) == (max_delay > 1)
+    for name in ("energy_threshold", "chan_response", "chan_resp_offset",
+                 "chan_amplitude", "snr", "dfe_forward", "dfe_feedback"):
+        x = getattr(b[0], name)
+        step = 3e-6 * max(1.0, float(torch.view_as_real(x).abs().max())
+                          if x.is_complex() else float(x.abs().max()))
+        near = b[0]._replace(**{name: x + step / 6})
+        exact_bakeoff.assert_same(a, (near, b[1]), 2)
+        far = b[0]._replace(**{name: x + step})
+        with pytest.raises(AssertionError, match=name):
+            exact_bakeoff.assert_same(a, (far, b[1]), 2)
+
+
 def test_scaling_bench_bytes_are_mesh_traffic(capsys):
     from openbts_ttsou_tpu_torch.parallel.sharded import (
         sharded_uplink_pipeline)

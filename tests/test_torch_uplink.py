@@ -175,12 +175,22 @@ def test_uplink_block_matches_jax(case):
 
 
 def test_rx_step_schedule_matches_jax(monkeypatch):
-    """The per-frame rx_step loop (the schedule above 128 carriers) gives
+    """The per-frame rx_step loop (the schedule above the boundary) gives
     the batched schedule's results; the JAX package pins its two
     schedules equal (tests/test_exact_block.py)."""
     monkeypatch.setattr(ttrx, "EXACT_BATCH_MAX_CHAN", 0)
     cfg, st, streams = case_dfe_adoption(np.random.default_rng(41))
     drive_both(cfg, st, streams)
+
+
+@pytest.mark.parametrize("n_chan", [1, 128, 512, 1024,
+                                    ttrx.EXACT_BATCH_MAX_CHAN])
+def test_exact_schedule_is_batched_up_to_the_boundary(n_chan):
+    """The card runs the batched schedule at the widths it serves (512
+    and 1024 carriers included); the frame loop only above the boundary,
+    where the batched schedule's memory grows past its share."""
+    assert ttrx.exact_schedule(n_chan) == "batched"
+    assert ttrx.exact_schedule(ttrx.EXACT_BATCH_MAX_CHAN + 1) == "frames"
 
 
 def test_process_block_exact_matches_jax():
