@@ -277,8 +277,9 @@ def process_block_exact(cfg: eng.TrxConfig, frames: int,
     chan_norm_all = chan_est / amp_safe[:, None]
     dfe_chan_all = chan_norm_all[..., ::sps] if sps > 1 else chan_norm_all
     if gate_est:  # the same host-synced gate as above
-        w_all, b_all = dfe_mod.design_dfe(
-            dfe_chan_all, torch.clamp(new_snr_all, min=1e-6), eng.DFE_NF)
+        with span("rx.dfe_design"):
+            w_all, b_all = dfe_mod.design_dfe(
+                dfe_chan_all, torch.clamp(new_snr_all, min=1e-6), eng.DFE_NF)
     else:
         w_all = torch.zeros((n, eng.DFE_NF), dtype=torch.complex64,
                             device=dev)
@@ -317,9 +318,10 @@ def process_block_exact(cfg: eng.TrxConfig, frames: int,
     with span("sync.dfe_gate"):
         dfe_open = bool(use_dfe.any())
     if dfe_open:
-        soft_eq = dfe_mod.equalize_burst(bursts / amp_safe[:, None],
-                                         toa - off_sel, sps, w_sel,
-                                         b_sel)[:, :k]
+        with span("rx.equalize"):
+            soft_eq = dfe_mod.equalize_burst(bursts / amp_safe[:, None],
+                                             toa - off_sel, sps, w_sel,
+                                             b_sel)[:, :k]
         soft = torch.where(use_dfe[:, None], soft_eq, soft_plain[:, :k])
     else:
         soft = soft_plain[:, :k]

@@ -334,8 +334,9 @@ def rx_step(cfg: TrxConfig, state: TrxState, frame: torch.Tensor
     # the DFE is symbol-rate: decimate the oversampled estimate
     dfe_chan = chan_norm[..., :: cfg.sps] if cfg.sps > 1 else chan_norm
     if est_open:  # the same host-synced gate as above
-        dfe_w, dfe_b = dfe_mod.design_dfe(
-            dfe_chan, torch.clamp(new_snr, min=1e-6), DFE_NF)
+        with span("rx.dfe_design"):
+            dfe_w, dfe_b = dfe_mod.design_dfe(
+                dfe_chan, torch.clamp(new_snr, min=1e-6), DFE_NF)
     else:
         dfe_w = torch.zeros((n, DFE_NF), dtype=torch.complex64, device=dev)
         dfe_b = torch.zeros((n, CHAN_TAPS - 1), dtype=torch.complex64,
@@ -376,11 +377,12 @@ def rx_step(cfg: TrxConfig, state: TrxState, frame: torch.Tensor
     with span("sync.dfe_gate"):
         dfe_open = bool(use_dfe.any())
     if dfe_open:
-        soft_eq = dfe_mod.equalize_burst(
-            bursts / amp_safe[:, None],
-            toa - new_state.chan_resp_offset.reshape(-1), sps,
-            _flat(new_state.dfe_forward), _flat(new_state.dfe_feedback)
-        )[:, :k]
+        with span("rx.equalize"):
+            soft_eq = dfe_mod.equalize_burst(
+                bursts / amp_safe[:, None],
+                toa - new_state.chan_resp_offset.reshape(-1), sps,
+                _flat(new_state.dfe_forward), _flat(new_state.dfe_feedback)
+            )[:, :k]
         soft = torch.where(use_dfe[:, None], soft_eq, soft_plain[:, :k])
     else:
         soft = soft_plain[:, :k]

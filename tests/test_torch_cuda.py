@@ -670,23 +670,64 @@ def test_every_host_sync_is_inside_a_sync_span(card, monkeypatch, path):
     assert len(seen) == sum(s[0].startswith("sync.") for s in spans)
 
 
+def _tu_rach_block(c: int):
+    """(cfg, entry state, symbol stream): the first block of the
+    benchmark's `tu_rach` traffic (TS1 line of sight, TS2-7 through the
+    TU 6-tap profile, access bursts on TS0) at `c` carriers, brought to
+    the symbol rate by K1, and the stock OpenBTS cell's state: max delay
+    4, RACH on TS0 alone; and what the traffic expects of the block."""
+    import json
+    from pathlib import Path
+
+    from trxbench.generators import multipath
+
+    root = Path(__file__).resolve().parents[1] / "trxbench"
+    par = json.loads((root / "traffic" / "tu_rach.json").read_text()
+                     )["params"]
+    pool = multipath.make(dict(par, pool=1), {"carriers": c},
+                          2 ** 31 + 16, torch.device("cuda"))
+    cfg = eng.TrxConfig(n_chan=c, rach_slots=(0,))
+    ct = torch.full((c, 8), eng.ChanType.I, dtype=torch.int32)
+    ct[:, 0] = eng.ChanType.IV
+    st = eng.init_state(cfg, "cuda")._replace(
+        chan_type=ct.cuda(),
+        max_expected_delay=torch.full((c,), 4, dtype=torch.int32,
+                                      device="cuda"))
+    lpf = fir.resampler_lpf(65, 96, 961)
+    sym = fir.polyphase_resample(pool["items"][0], 65, 96, lpf)
+    return cfg, st, sym[..., : 13 * 1250], pool["expect"][0]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("max_delay", [0, 5])
-def test_exact_schedules_agree_at_512_carriers(card, max_delay):
+@pytest.mark.parametrize("max_delay,traffic", [(0, None), (5, None),
+                                               (4, "tu_rach")],
+                         ids=["0", "5", "tu_rach"])
+def test_exact_schedules_agree_at_512_carriers(card, max_delay, traffic):
     """`process_block_exact` and `process_block_frames` from one entry
     state on the bake-off's block at 512 carriers, with the DFE off and
     on (max delay 5: the gated estimate, the DFE design and the
-    equalizer): equal detections, RACH flags, RSSI and timing, soft bits
-    within 2e-4, an equal integer state and every float state field
-    within 1e-6 of its largest value, the benchmark's limits."""
+    equalizer), and on the first block of the benchmark's `tu_rach`
+    traffic (multipath and access bursts) at max delay 4, RACH on TS0:
+    equal detections, RACH flags, RSSI and timing, soft bits within
+    2e-4, an equal integer state and every float state field within 1e-6
+    of its largest value, the benchmark's limits."""
     from openbts_ttsou_tpu_torch.tools import exact_bakeoff
 
     c = 512
-    cfg, st, sym = exact_bakeoff.block(c, 13, torch.device("cuda"),
-                                       max_delay)
+    if traffic is None:
+        cfg, st, sym = exact_bakeoff.block(c, 13, torch.device("cuda"),
+                                           max_delay)
+    else:
+        cfg, st, sym, expect = _tu_rach_block(c)
     a = T.process_block_exact(cfg, 13, st, sym)
     b = T.process_block_frames(cfg, 13, st, sym)
     torch.cuda.synchronize()
     exact_bakeoff.assert_same(a, b, c)
-    assert int(b[1].detected.sum()) == 13 * c
+    assert bool(b[1].detected[:, :, 1].all())
     assert bool(b[0].chan_valid[:, 1].all()) == (max_delay > 1)
+    if traffic is None:
+        assert int(b[1].detected.sum()) == 13 * c
+    else:
+        det, rach = b[1].detected.cpu().numpy(), b[1].is_rach.cpu().numpy()
+        assert not (expect["detect"] & ~det).any()
+        assert not (expect["rach"] & ~rach).any() and expect["rach"].any()
