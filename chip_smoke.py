@@ -18,10 +18,13 @@ prints no result):
    with the kernel instantiation each shape runs and device times (CUDA
    events, calls queued behind a device sleep) for the kernel, the plain
    version and one PyTorch library call, the kernel's share of its bound
-   and its achieved bytes a second;
+   and its achieved bytes a second; K7, the threshold walk, against
+   `exact_walk_plain` at [13, 512, 8] and [13, 2048, 8], every output
+   bit-equal, with both device times and the kernel's share of its bound;
 3. uplink: `Transceiver.process_uplink` on 512 carriers over 3
    consecutive 13-frame blocks of the bench recipe (bench.py:162-195),
-   checked block by block, timed, with the kernels' launch counts;
+   checked block by block, timed, with the kernels' launch counts (K1
+   and K7 one a block);
 4. profile: one more uplink block under torch.profiler (device busy and
    idle share, device events, the kernels that take the time), and both
    exact schedules timed on one block from one entry state, results
@@ -198,12 +201,15 @@ def phase_card() -> str:
 
 # ---- phase 2 ---------------------------------------------------------------
 
-def phase_kernels() -> dict:
+def phase_kernels() -> tuple[dict, dict]:
     """Each K1 shape through `tools/kernel_bakeoff.py` (the kernel, its
     plain form and one `F.conv1d`, device-timed), held to a compile-time
     instantiation, the plain form's output within 2e-4 of its scale, and
-    a host that kept ahead of the device while timing."""
-    from openbts_ttsou_tpu_torch.tools.kernel_bakeoff import K1_SHAPES, bake
+    a host that kept ahead of the device while timing; then each K7 shape
+    (`bake_walk`: the kernel and `exact_walk_plain`, device-timed), every
+    output bit-equal to the plain form's. Returns (K1 rows, K7 rows)."""
+    from openbts_ttsou_tpu_torch.tools.kernel_bakeoff import (
+        K1_SHAPES, K7_SHAPES, bake, bake_walk)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
@@ -230,7 +236,18 @@ def phase_kernels() -> dict:
         del r["shape_ok"], r["finite"]
         rows[(n_rows, p, q, t_in)] = r
         record({"phase": "kernels", "kernel": "polyphase_resample", **r})
-    return rows
+    walks = {}
+    for frames, carriers in K7_SHAPES:
+        r = bake_walk(frames, carriers, gen)
+        what = f"K7 [{frames}, {carriers}, 8]"
+        check(r["differ"] == 0,
+              f"{what}: {r['differ']} outputs differ from the plain form")
+        check(r["host_queue_share"] < 1,
+              f"{what}: the host fell behind the device while timing "
+              f"(queue share {r['host_queue_share']:.3f})")
+        walks[(frames, carriers)] = r
+        record({"phase": "kernels", "kernel": "exact_walk", **r})
+    return rows, walks
 
 
 # ---- phase 3 ---------------------------------------------------------------
@@ -269,7 +286,7 @@ def new_transceiver(cfg, spec):
 
 def phase_main_path():
     from openbts_ttsou_tpu_torch.models.transceiver import UplinkSpec
-    from openbts_ttsou_tpu_torch.ops import cuda_fir
+    from openbts_ttsou_tpu_torch.ops import cuda_fir, cuda_walk
     from openbts_ttsou_tpu_torch.trx.engine import TrxConfig
 
     cfg = TrxConfig(n_chan=N_CHAN)
@@ -280,6 +297,7 @@ def phase_main_path():
 
     trx = new_transceiver(cfg, spec)
     cuda_fir.polyphase_resample_cuda.launches = 0
+    cuda_walk.exact_walk_cuda.launches = 0
     results, thresholds = [], []
     t0 = time.perf_counter()
     for _ in range(BLOCKS):
@@ -287,11 +305,15 @@ def phase_main_path():
         thresholds.append(trx.state.energy_threshold.clone())
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"polyphase_resample": cuda_fir.polyphase_resample_cuda.launches}
+    launches = {"polyphase_resample": cuda_fir.polyphase_resample_cuda.launches,
+                "exact_walk": cuda_walk.exact_walk_cuda.launches}
 
     check(launches["polyphase_resample"] == BLOCKS,
           f"K1 launched {launches['polyphase_resample']} times in "
           f"{BLOCKS} blocks, expected 1 a block")
+    check(launches["exact_walk"] == BLOCKS,
+          f"K7 launched {launches['exact_walk']} times in {BLOCKS} blocks, "
+          f"expected 1 a block")
     for k, (res, thr) in enumerate(zip(results, thresholds)):
         det = res.detected
         check(int(det.sum()) == N_CHAN * spec.frames,
@@ -539,7 +561,7 @@ def phase_duplex() -> dict:
     each block's DAC rows, resampled back and demodulated, must give
     those bits."""
     from openbts_ttsou_tpu_torch.models import transceiver as T
-    from openbts_ttsou_tpu_torch.ops import cuda_fir
+    from openbts_ttsou_tpu_torch.ops import cuda_fir, cuda_walk
     from openbts_ttsou_tpu_torch.trx.engine import TrxConfig
 
     cfg = TrxConfig(n_chan=N_CHAN)
@@ -581,6 +603,7 @@ def phase_duplex() -> dict:
 
     st, tail, outs, thresholds = st0, tail0, [], []
     cuda_fir.polyphase_resample_cuda.launches = 0
+    cuda_walk.exact_walk_cuda.launches = 0
     t0 = time.perf_counter()
     for k in range(BLOCKS):
         st, tail, hdr, tx_buf, pkt_buf = T.duplex_block_compact(
@@ -589,10 +612,14 @@ def phase_duplex() -> dict:
         thresholds.append(st.energy_threshold)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"polyphase_resample": cuda_fir.polyphase_resample_cuda.launches}
+    launches = {"polyphase_resample": cuda_fir.polyphase_resample_cuda.launches,
+                "exact_walk": cuda_walk.exact_walk_cuda.launches}
     check(launches["polyphase_resample"] == 2 * BLOCKS,
           f"K1 launched {launches['polyphase_resample']} times in {BLOCKS} "
           f"duplex blocks, expected 2 a block")
+    check(launches["exact_walk"] == BLOCKS,
+          f"K7 launched {launches['exact_walk']} times in {BLOCKS} duplex "
+          f"blocks, expected 1 a block")
     ms_block = dt / BLOCKS * 1e3
     prof = device_profile(lambda: T.duplex_block_compact(
         cfg, spec, st, bufs[0], tail), ms_block)
@@ -1167,7 +1194,7 @@ def phase_resident() -> dict:
     timed in turns with duplex_block_wire on the same uplink and bursts
     (the FEC legs' cost)."""
     from openbts_ttsou_tpu_torch.models import transceiver as T
-    from openbts_ttsou_tpu_torch.ops import cuda_fir, fir
+    from openbts_ttsou_tpu_torch.ops import cuda_fir, cuda_walk, fir
     from openbts_ttsou_tpu_torch.parallel.halo import resample_block
 
     c, fn0 = N_CHAN, first_tch_start()
@@ -1188,6 +1215,7 @@ def phase_resident() -> dict:
 
     r = new_resident(c, fn0, "cuda")
     cuda_fir.polyphase_resample_cuda.launches = 0
+    cuda_walk.exact_walk_cuda.launches = 0
     blocks, ms = [], []
     for w in range(RES_WINDOWS):
         torch.cuda.synchronize()
@@ -1196,10 +1224,14 @@ def phase_resident() -> dict:
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
     launches = {"polyphase_resample":
-                cuda_fir.polyphase_resample_cuda.launches}
+                cuda_fir.polyphase_resample_cuda.launches,
+                "exact_walk": cuda_walk.exact_walk_cuda.launches}
     check(launches["polyphase_resample"] == 2 * RES_WINDOWS,
           f"resident: K1 launched {launches['polyphase_resample']} times in "
           f"{RES_WINDOWS} windows, expected 2 a window")
+    check(launches["exact_walk"] == RES_WINDOWS,
+          f"resident: K7 launched {launches['exact_walk']} times in "
+          f"{RES_WINDOWS} windows, expected 1 a window")
     got = collections.Counter()
     for b in blocks:
         got.update(decoded_keys(b))
@@ -3223,11 +3255,13 @@ def phase_bench() -> dict:
     return out
 
 
-def kernels_line(kern: dict, launches: dict) -> dict:
+def kernels_line(kern: dict, walks: dict, launches: dict) -> dict:
     """The `kernels` record: K1 at the uplink shape, every shape's times
     beside its bound, and its launches on each main path (uplink,
     duplex, daemon, ..., sharded, soak, tools, bench), each counted
-    from zero over that path's run (bench: in each bench process)."""
+    from zero over that path's run (bench: in each bench process); K7
+    at its shapes, and its launches on the paths that count them (uplink,
+    duplex, resident: one a block)."""
     from openbts_ttsou_tpu_torch.tools.kernel_bakeoff import K1_SHAPES
 
     rows, p, q, _, t_in = K1_SHAPES[0]
@@ -3249,7 +3283,17 @@ def kernels_line(kern: dict, launches: dict) -> dict:
         "library_ms": up["library_ms"], "bound_share": up["bound_share"],
         "gbytes_per_s": up["gbytes_per_s"],
         "shapes": [{"geometry": r["geometry"], **{k: r[k] for k in keys}}
-                   for r in kern.values()]}]}
+                   for r in kern.values()]}, {
+        "name": "exact_walk", "route": "cuda",
+        "source": "openbts_ttsou_tpu_torch/csrc/exact_walk.cu",
+        "replaces": "openbts_ttsou_tpu/models/transceiver.py:188 (lax.scan)",
+        "launches_by_path": {path: n["exact_walk"]
+                             for path, n in launches.items()
+                             if "exact_walk" in n},
+        "differ": sum(r["differ"] for r in walks.values()),
+        "shapes": [{k: r[k] for k in ("geometry", "ms", "plain_ms",
+                                      "bound_ms", "bound_share")}
+                   for r in walks.values()]}]}
 
 
 def main() -> int:
@@ -3268,7 +3312,7 @@ def main() -> int:
         return out
 
     card = timed("card", phase_card)
-    kern = timed("kernels", phase_kernels)
+    kern, walks = timed("kernels", phase_kernels)
     if "--kernels-only" in sys.argv[1:]:  # phases 1-2: build and time
         print(card, flush=True)
         return 0
@@ -3304,7 +3348,7 @@ def main() -> int:
                 "usrp_bus": bus["launches"], "bts": bts["launches"],
                 "sharded": sharded["launches"], "soak": tools["launches"],
                 "tools": tools["tools_launches"], "bench": bench["launches"]}
-    print(json.dumps(kernels_line(kern, launches)), flush=True)
+    print(json.dumps(kernels_line(kern, walks, launches)), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,7 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
 #: kernel library name → CUDA source file under csrc/
 SOURCES = {
     "polyphase_resample": "polyphase_resample.cu",
+    "exact_walk": "exact_walk.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -78,9 +79,14 @@ def build_all() -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library `name`, built first if missing or stale."""
+    """The kernel library `name`. Where it is missing or stale, every
+    stale library is built first, one nvcc process each, all started
+    together (as `build_all`), so that a checkout's first run waits for
+    the slowest build once rather than for each in turn."""
     if name not in _loaded:
         if _stale(name):
-            _finish(name, *_start(name))
+            started = {n: _start(n) for n in SOURCES if _stale(n)}
+            for n, (proc, tmp) in started.items():
+                _finish(n, proc, tmp)
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]

@@ -1,7 +1,9 @@
 """K1, the polyphase resampler, three ways at every shape the main paths
 give it: the hand-written CUDA kernel, its plain PyTorch form
 (`cuda_fir.polyphase_resample_plain`) and one float32 `F.conv1d` of the
-same filter bank with TF32 off (a yardstick the port never calls).
+same filter bank with TF32 off (a yardstick the port never calls). K7,
+the threshold walk, two ways (`bake_walk`): the kernel and
+`exact_walk_plain`, at `K7_SHAPES` (`chip_smoke.py` phase 2 runs it).
 
 For each shape: device ms of each path (CUDA events, the calls queued
 behind a device sleep so the host's dispatch stays out), the kernel's
@@ -33,6 +35,11 @@ K1_SHAPES = ((N_CHAN, 65, 96, 961, 24000), (N_CHAN, 96, 65, 651, 16250),
              (N_CHAN, 65, 96, 961, 24192), (N_CHAN, 96, 65, 651, 16380),
              (N_CHAN // 2, 65, 96, 961, 24192),
              (N_CHAN // 2, 96, 65, 651, 16380))
+
+
+#: K7's shapes on the main paths, (frames, carriers) of [F, C, 8]: the
+#: 13-frame block at 512 carriers and at the batched schedule's largest
+K7_SHAPES = ((13, N_CHAN), (13, 4 * N_CHAN))
 
 
 def bound_ms(rows: int, t_in: int, p: int, q: int,
@@ -99,6 +106,62 @@ def bake(rows: int, p: int, q: int, taps: int, t_in: int,
             "bound_ms": bound, "bound_by": bound_by,
             "bound_share": bound / ms, "gbytes_per_s": nbytes / ms / 1e6,
             "host_queue_share": {"kernel": ahead, "library": library_ahead}}
+
+
+def walk_inputs(frames: int, carriers: int, gen: torch.Generator) -> tuple:
+    """Random inputs for `exact_walk` on the card: energies around the
+    initial threshold squared (so the gate, hits, misses and quiet slots
+    all occur), random flags, need_dfe on half the carriers, the state's
+    false-detect and estimate frames within 100 frames of the block."""
+    from openbts_ttsou_tpu_torch.trx import engine as eng
+
+    dev = torch.device("cuda")
+    shape = (frames, carriers, 8)
+
+    def flags(p):
+        return torch.rand(shape, generator=gen, device=dev) < p
+
+    def near(size):
+        return torch.randint(0, 100, size, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    state = eng.init_state(eng.TrxConfig(n_chan=carriers), dev)
+    state = state._replace(prev_false_detect_fn=near((carriers,)),
+                           chan_estimate_fn=near((carriers, 8)),
+                           chan_valid=torch.rand((carriers, 8), generator=gen,
+                                                 device=dev) < 0.5)
+    thr2 = float(state.energy_threshold[0]) ** 2
+    energy = thr2 * torch.exp(3 * torch.rand(shape, generator=gen,
+                                             device=dev) - 1.5)
+    fns = 100 + torch.arange(frames, dtype=torch.int32, device=dev)
+    need_dfe = torch.rand(carriers, generator=gen, device=dev) < 0.5
+    return (fns, flags(0.9), flags(0.8), energy, flags(0.6), flags(0.6),
+            need_dfe, state)
+
+
+def bake_walk(frames: int, carriers: int, gen: torch.Generator,
+              reps: int = 25) -> dict:
+    """K7 at [frames, carriers, 8] on the card: the kernel's and the plain
+    form's device ms, the bound (`roofline.k7_work`) and the count of
+    output elements that differ from the plain form's (0: bit for bit)."""
+    from openbts_ttsou_tpu_torch.models import transceiver as T
+    from openbts_ttsou_tpu_torch.tools import roofline
+
+    args = walk_inputs(frames, carriers, gen)
+    got, want = T.exact_walk(*args), T.exact_walk_plain(*args)
+    torch.cuda.synchronize()
+    differ = sum(int((g != w).sum()) for g, w in zip(got, want))
+    bound, bound_by = roofline.bound_ms(roofline.k7_work(frames, carriers),
+                                        common.HBM_BYTES_PER_S,
+                                        common.FP32_FLOPS)
+    ms, ahead = common.cuda_ms(lambda: T.exact_walk(*args), reps)
+    # ~3,000 launches a call: the host queues the plain form slower than
+    # the card runs it, so its interval is the host's dispatch
+    plain_ms, _ = common.cuda_ms(lambda: T.exact_walk_plain(*args), 5)
+    return {"geometry": f"[{frames}, {carriers}, 8]", "differ": differ,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "bound_share": bound / ms,
+            "host_queue_share": ahead}
 
 
 def bake_cpu(rows: int, p: int, q: int, taps: int, t_in: int,

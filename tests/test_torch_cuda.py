@@ -9,8 +9,10 @@ import numpy as np
 import pytest
 import torch
 
+import walk_cases
 from openbts_ttsou_tpu_torch.models import transceiver as T
 from openbts_ttsou_tpu_torch.ops import cuda_fir
+from openbts_ttsou_tpu_torch.ops import cuda_walk
 from openbts_ttsou_tpu_torch.ops import fir
 from openbts_ttsou_tpu_torch.ops import gmsk
 from openbts_ttsou_tpu_torch.trx import engine as eng
@@ -106,6 +108,61 @@ def test_resample_kernel_takes_unaligned_rows(card):
     got, want = got.cpu().numpy(), want.cpu().numpy()
     np.testing.assert_allclose(got, want, rtol=2e-4,
                                atol=2e-4 * np.abs(want).max())
+
+
+# (frames, carriers) of the threshold walk (K7): one frame, the block's
+# 13 and a 26-frame block, from one carrier (a thread of one block) over
+# 37 (a partial block) to the schedule's 512 and its largest 2048
+WALK_SHAPES = [(f, c) for c in (1, 37, 512, 2048) for f in (1, 13, 26)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,c", WALK_SHAPES)
+def test_walk_kernel_matches_plain(card, f, c):
+    """K7 against `exact_walk_plain` on the card, all nine outputs equal
+    bit for bit: frames across the hyperframe's wrap and not, the state's
+    frames ahead of and behind them, thresholds at, near and below 0,
+    need_dfe mixed (`walk_cases.walk_inputs`). One launch a call."""
+    for seed, wrap in ((1000 * f + c, True), (1000 * f + c + 500, False)):
+        args = walk_cases.walk_inputs(f, c, seed, "cuda", wrap)
+        n0 = cuda_walk.exact_walk_cuda.launches
+        got = T.exact_walk(*args)
+        assert cuda_walk.exact_walk_cuda.launches == n0 + 1
+        want = T.exact_walk_plain(*args)
+        torch.cuda.synchronize()
+        for name, g, w in zip(T.ExactWalk._fields, got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            assert g.is_cuda and g.is_contiguous(), name
+            assert torch.equal(g, w), (name, seed)
+
+
+@pytest.mark.cuda
+def test_walk_kernel_refuses_bad_input(card):
+    *inputs, st = walk_cases.walk_inputs(2, 8, 5, "cuda")
+    good = inputs + [st.energy_threshold, st.prev_false_detect_fn,
+                     st.chan_valid, st.chan_estimate_fn]
+    energy = good[3]
+    unaligned = torch.zeros(energy.numel() + 1, device="cuda")[1:].view(
+        energy.shape)
+    bad = [(3, energy.cpu(), ValueError),  # a CPU tensor
+           (3, energy.double(), TypeError),
+           (1, good[1].to(torch.uint8), TypeError),
+           (0, good[0].long(), TypeError),
+           (6, good[6][:-1], ValueError),  # need_dfe of another shape
+           (9, good[9][:, :4], ValueError),
+           (3, energy.transpose(0, 1).contiguous().transpose(0, 1),
+            ValueError),  # not contiguous
+           (10, good[10].t().contiguous().t(), ValueError),
+           (3, unaligned, ValueError)]  # off the 16-byte grid
+    n0 = cuda_walk.exact_walk_cuda.launches
+    for k, value, err in bad:
+        args = list(good)
+        args[k] = value
+        with pytest.raises(err):
+            cuda_walk.exact_walk_cuda(*args)
+    assert cuda_walk.exact_walk_cuda.launches == n0
+    cuda_walk.exact_walk_cuda(*good)
+    assert cuda_walk.exact_walk_cuda.launches == n0 + 1
 
 
 def _duplex_inputs(c, rng):

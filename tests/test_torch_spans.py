@@ -255,6 +255,7 @@ def _bank_spans():
             _span("sync.est_gate", base + 10, base + 12, "rx.frame", r),
             _span("sync.dfe_gate", base + 20, base + 21 + k, "rx.frame", r),
             _span("rx.frame", base + 5, base + 40, "rx.exact", r),
+            _span("rx.walk", base + 41, base + 44 + k, "rx.exact", r),
             _span("rx.exact", base + 2, base + 80, "trx.uplink", r),
             _span("fec.decode", base + 81, base + 90, "l1.step", r),
             _span("sync.table", base + 91, base + 92, "fec.encode", r),
@@ -291,6 +292,8 @@ REC = {"calls": [_call(1000, 1100), _call(1200, 1300)]}
     ("prog_syncs_per_block", 4.0), ("prog_syncs_per_block.l1res", 4.0),
     ("fec_decode_ms.l1res", 9.0),
     ("fec_encode_ms.l1res", 4.0),
+    # rx.walk: 3 ms and 4 ms, no syncs inside
+    ("walk_ms", 3.5),
 ])
 def test_span_readers_on_a_synthetic_window(program, metric, want):
     assert _reader(metric)(REC) == pytest.approx(want)
@@ -298,7 +301,7 @@ def test_span_readers_on_a_synthetic_window(program, metric, want):
 
 READERS = ("rx_host_ms", "sync_wait_ms", "prog_syncs_per_block",
            "fec_decode_ms.l1res", "fec_encode_ms.l1res",
-           "sync_wait_ms.l1res", "prog_syncs_per_block.l1res")
+           "sync_wait_ms.l1res", "prog_syncs_per_block.l1res", "walk_ms")
 
 
 @pytest.mark.parametrize("case", ["dropped", "extra_root", "missing_root",
@@ -339,5 +342,7 @@ def test_span_readers_read_the_programs_own_record():
     host = _reader("rx_host_ms")(rec)
     waits = _reader("sync_wait_ms")(rec)
     syncs = _reader("prog_syncs_per_block")(rec)
+    walk = _reader("walk_ms")(rec)
     assert host > 0 and waits >= 0 and syncs >= 2
+    assert 0 < walk < host  # rx.walk lies inside rx.exact
     assert host + waits <= 1e3 * max(c["done"] - c["issue"] for c in calls)
