@@ -68,9 +68,9 @@ prints no result):
     makes a location update, an MO call with 50 GSM 06.10 frames each way
     over a TCH/F, takes an MT SMS, and sends itself an SMS through the
     port's smqueue; step times, FEC call times, one
-    profiled stretch of the call; then the location update again with
-    daemon and app on the CPU: the same downlink bursts and L3 messages
-    frame by frame;
+    profiled stretch of the call, K7 launched once a daemon frame; then
+    the location update again with daemon and app on the CPU: the same
+    downlink bursts and L3 messages frame by frame;
 14. the BTS entry point as processes: `BTSApp(spawn_transceiver=True,
     device="cuda")` starts `python -m openbts_ttsou_tpu_torch.trx.daemon
     --device cuda`, brings it up over the control sockets, follows its
@@ -2349,13 +2349,15 @@ def profile_call_frames(rig: BtsRig, frame) -> dict:
 def phase_bts() -> dict:
     """The BTS over the air at full C0 width on the card (module
     docstring, phase 13), then the location update again with daemon and
-    app on the CPU: the same downlink bursts and L3 messages by FN."""
-    from openbts_ttsou_tpu_torch.ops import cuda_fir
+    app on the CPU: the same downlink bursts and L3 messages by FN;
+    K7 once a frame of the daemon, K1 never."""
+    from openbts_ttsou_tpu_torch.ops import cuda_fir, cuda_walk
 
     fec_ms: dict = {}
     rig = BtsRig("cuda", BTS_PORT)
     undo = timed_fec_calls(fec_ms)
     cuda_fir.polyphase_resample_cuda.launches = 0
+    cuda_walk.exact_walk_cuda.launches = 0
     t0 = time.perf_counter()
     try:
         rig.record()
@@ -2373,10 +2375,14 @@ def phase_bts() -> dict:
         rig.close()
     session_s = time.perf_counter() - t0
     launches = {"polyphase_resample":
-                cuda_fir.polyphase_resample_cuda.launches}
+                cuda_fir.polyphase_resample_cuda.launches,
+                "exact_walk": cuda_walk.exact_walk_cuda.launches}
     check(launches["polyphase_resample"] == 0,
           f"bts: K1 launched {launches} on the symbol-rate path")
     frames = len(rig.daemon_ms)
+    check(launches["exact_walk"] == frames,
+          f"bts: K7 launched {launches['exact_walk']} times in {frames} "
+          f"daemon frames, expected 1 a frame")
 
     cpu = BtsRig("cpu", BTS_PORT + 10)
     try:
@@ -3261,7 +3267,8 @@ def kernels_line(kern: dict, walks: dict, launches: dict) -> dict:
     duplex, daemon, ..., sharded, soak, tools, bench), each counted
     from zero over that path's run (bench: in each bench process); K7
     at its shapes, and its launches on the paths that count them (uplink,
-    duplex, resident: one a block)."""
+    duplex, resident: one a block; bts: one a frame of the per-frame
+    daemon)."""
     from openbts_ttsou_tpu_torch.tools.kernel_bakeoff import K1_SHAPES
 
     rows, p, q, _, t_in = K1_SHAPES[0]

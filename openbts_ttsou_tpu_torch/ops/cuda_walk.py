@@ -1,7 +1,7 @@
 """K7: the exact receiver's threshold walk as a hand-written CUDA kernel.
 
 The kernel (`csrc/exact_walk.cu`) computes what
-`models/transceiver.py::exact_walk_plain` computes, bit for bit, in one
+`trx/engine.py::exact_walk_plain` computes, bit for bit, in one
 launch: one thread a carrier walks the block's frames and their 8 slots
 in order, its threshold, last false-detect frame, validity bits,
 estimate frames and last adoptions in registers. `exact_walk_cuda`

@@ -144,20 +144,20 @@ def bake_walk(frames: int, carriers: int, gen: torch.Generator,
     """K7 at [frames, carriers, 8] on the card: the kernel's and the plain
     form's device ms, the bound (`roofline.k7_work`) and the count of
     output elements that differ from the plain form's (0: bit for bit)."""
-    from openbts_ttsou_tpu_torch.models import transceiver as T
     from openbts_ttsou_tpu_torch.tools import roofline
+    from openbts_ttsou_tpu_torch.trx import engine as eng
 
     args = walk_inputs(frames, carriers, gen)
-    got, want = T.exact_walk(*args), T.exact_walk_plain(*args)
+    got, want = eng.exact_walk(*args), eng.exact_walk_plain(*args)
     torch.cuda.synchronize()
     differ = sum(int((g != w).sum()) for g, w in zip(got, want))
     bound, bound_by = roofline.bound_ms(roofline.k7_work(frames, carriers),
                                         common.HBM_BYTES_PER_S,
                                         common.FP32_FLOPS)
-    ms, ahead = common.cuda_ms(lambda: T.exact_walk(*args), reps)
+    ms, ahead = common.cuda_ms(lambda: eng.exact_walk(*args), reps)
     # ~3,000 launches a call: the host queues the plain form slower than
     # the card runs it, so its interval is the host's dispatch
-    plain_ms, _ = common.cuda_ms(lambda: T.exact_walk_plain(*args), 5)
+    plain_ms, _ = common.cuda_ms(lambda: eng.exact_walk_plain(*args), 5)
     return {"geometry": f"[{frames}, {carriers}, 8]", "differ": differ,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": bound_by, "bound_share": bound / ms,

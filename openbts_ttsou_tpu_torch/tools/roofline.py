@@ -32,7 +32,7 @@ complex sample 4, |z|² 3, a sinc tap 1:
   T·8 + 4 + (7 + 5)·8 in, T·4 out;
 * K6 `demodulate_burst`: 7 + 6T (1/amplitude) + 21 + 21·4·T (delay)
   + 6T (rotation) + 3T (slicer); bytes T·8 + 8 + 4 in, T·4 out;
-* K7 the threshold walk (`models/transceiver.py` `exact_walk`) over
+* K7 the threshold walk (`trx/engine.py` `exact_walk`) over
   [F, C, 8]: 8 a burst (the energy gate, the quiet, hit and miss
   updates with exp(−Δ)) + 1 a carrier a frame (thr²); bytes 8 a burst
   in (energy, four flags), 6 out (success, validity, last adoption),
@@ -55,7 +55,7 @@ as the sum of its regions, K1 65/96 and K2–K7 once each, at each of
 `--block-carriers`, and timed as `uplink_block` on a block whose every
 burst runs every region (`dfe_cost_probe`'s DFE-on leg: every slot a
 TCH with the equalizer on; RACH correlation runs on every slot, as
-`rx_step` does without `rach_slots`). K1 96/65 and K8 belong to the
+the receiver does without `rach_slots`). K1 96/65 and K8 belong to the
 duplex and resident windows, not to this block. Each time is wall,
 CUDA-event and profiled busy ms (`common.measure`); share = bound / ms,
 on CUDA-event and on busy time. On the CPU only wall times are given.
@@ -272,7 +272,7 @@ def region_calls(n_chan: int, dev: torch.device) -> dict:
         "K2": st["detect_rach"], "K3": st["analyze_traffic"],
         "K4": st["design_dfe"], "K5": st["equalize"],
         "K6": st["demodulate"],
-        "K7": lambda: transceiver.exact_walk(*walk_in),
+        "K7": lambda: eng.exact_walk(*walk_in),
     }
     for kind, (per_chan, k) in VITERBI_KINDS.items():
         soft = torch.from_numpy(rng.random((per_chan * n_chan, 2 * k))

@@ -126,11 +126,11 @@ def test_walk_kernel_matches_plain(card, f, c):
     for seed, wrap in ((1000 * f + c, True), (1000 * f + c + 500, False)):
         args = walk_cases.walk_inputs(f, c, seed, "cuda", wrap)
         n0 = cuda_walk.exact_walk_cuda.launches
-        got = T.exact_walk(*args)
+        got = eng.exact_walk(*args)
         assert cuda_walk.exact_walk_cuda.launches == n0 + 1
-        want = T.exact_walk_plain(*args)
+        want = eng.exact_walk_plain(*args)
         torch.cuda.synchronize()
-        for name, g, w in zip(T.ExactWalk._fields, got, want):
+        for name, g, w in zip(eng.ExactWalk._fields, got, want):
             assert g.dtype == w.dtype and g.shape == w.shape, name
             assert g.is_cuda and g.is_contiguous(), name
             assert torch.equal(g, w), (name, seed)

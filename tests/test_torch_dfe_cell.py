@@ -185,6 +185,36 @@ def test_frame_step_records_the_equalizer_spans(pool, max_delay):
     want = 1 if max_delay > 1 else 0
     assert n["rx.dfe_design"] == n["rx.equalize"] == want
     assert n["sync.est_gate"] == n["sync.dfe_gate"] == 1
+    assert n["rx.walk"] == 1
+
+
+def test_frame_after_adoption_designs_no_equalizer():
+    """A frame's estimation gate is its own want, not the bound of a
+    window (where a TSC burst in an earlier frame keeps it open): once a
+    frame has adopted an estimate on every slot (every slot a TCH/F
+    carrying a normal burst), the next frame designs no equalizer (no
+    `rx.dfe_design`) and still equalizes."""
+    g = generate.generator(SEED, "cpu")
+    cfg = eng.TrxConfig(n_chan=C)
+    state = eng.init_state(cfg, "cpu")._replace(
+        chan_type=torch.full((C, 8), eng.ChanType.I, dtype=torch.int32),
+        max_expected_delay=torch.full((C,), 4, dtype=torch.int32))
+
+    def frame():
+        bits = generate.normal_bursts(C * 8, 0, g, "cpu")
+        x = torch.zeros((C * 8, eng.SLOT_SAMPLES), dtype=torch.complex64)
+        x[:, :148] = gmsk.modulate_burst(bits, 1) * 9000.0
+        return (x + generate.noise((C * 8, eng.SLOT_SAMPLES), 10.0, g, "cpu")
+                ).reshape(C, 8, eng.SLOT_SAMPLES)
+
+    out = []
+    n = _names(lambda: out.append(eng.rx_step(cfg, state, frame())))
+    state, res = out[0]
+    assert n["rx.dfe_design"] == 1
+    assert bool(res.detected.all()) and bool(state.chan_valid.all())
+    n = _names(lambda: eng.rx_step(cfg, state, frame()))
+    assert n["rx.dfe_design"] == 0 and n["rx.equalize"] == 1
+    assert n["rx.walk"] == n["sync.est_gate"] == 1
 
 
 def test_equalizer_spans_nest_in_the_receiver(pool):

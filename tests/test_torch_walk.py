@@ -21,7 +21,7 @@ from openbts_ttsou_tpu_torch.utils.gsm_time import fn_delta
 
 
 def _equal(got, want):
-    for name, g, w in zip(T.ExactWalk._fields, got, want):
+    for name, g, w in zip(eng.ExactWalk._fields, got, want):
         g = torch.as_tensor(g)
         assert g.dtype == w.dtype and g.shape == w.shape, name
         assert torch.equal(g, w), name
@@ -33,7 +33,7 @@ def _equal(got, want):
     (13, 64, 17, False), (26, 37, 18, False)])
 def test_walk_in_the_kernels_order_matches_plain(f, c, seed, wrap):
     args = W.walk_inputs(f, c, seed, wrap=wrap)
-    _equal(W.walk_loop(*args), T.exact_walk_plain(*args))
+    _equal(W.walk_loop(*args), eng.exact_walk_plain(*args))
 
 
 def test_walk_inputs_reach_the_corners():
@@ -41,7 +41,7 @@ def test_walk_inputs_reach_the_corners():
     channels, clear validity and move the false-detect frame."""
     args = W.walk_inputs(26, 512, 6)
     state = args[7]
-    w = T.exact_walk_plain(*args)
+    w = eng.exact_walk_plain(*args)
     assert (w.thr_entry == 0).any() and (w.thr_entry < 0).any()
     assert ((w.thr_entry > 0) & (w.thr_entry < 1)).any()
     assert (w.last >= 0).any() and (w.last < 0).any()
@@ -65,7 +65,7 @@ def test_kernel_frame_delta_matches_fn_delta():
 def test_exact_walk_takes_the_plain_form_on_the_cpu():
     args = W.walk_inputs(13, 8, 21)
     n0 = cuda_walk.exact_walk_cuda.launches
-    _equal(T.exact_walk(*args), T.exact_walk_plain(*args))
+    _equal(eng.exact_walk(*args), eng.exact_walk_plain(*args))
     assert cuda_walk.exact_walk_cuda.launches == n0
 
 
