@@ -8,8 +8,10 @@ Phases (each one raises on failure; the script then exits non-zero and
 prints no result):
 
 1. card: name, power limit, torch/CUDA/nvcc versions; build every CUDA
-   kernel from `openbts_ttsou_tpu_torch/csrc/` and the port's native
-   runtime (`csrc/runtime/` with g++, the daemon's sockets and queues);
+   kernel from `openbts_ttsou_tpu_torch/csrc/` (each entry function's
+   registers, stack and spills from ptxas; K8's without stack or spills)
+   and the port's native runtime (`csrc/runtime/` with g++, the
+   daemon's sockets and queues);
 2. kernels: each kernel against its plain PyTorch version on the card,
    at the shapes the main paths give it (K1 at 65/96 · 961 taps on
    [512, 24000] (uplink) and [512, 24192] (duplex uplink with its two
@@ -21,6 +23,10 @@ prints no result):
    and its achieved bytes a second; K7, the threshold walk, against
    `exact_walk_plain` at [13, 512, 8] and [13, 2048, 8], every output
    bit-equal, with both device times and the kernel's share of its bound;
+   K8, the Viterbi decoder, against `viterbi_decode_plain` at a
+   512-carrier window's four calls (XCCH [10240, 456], RACH [53248, 36],
+   TCH [8192, 378], FACCH [8192, 456]), every bit equal, with both
+   device times, the bound and the kernel's registers and spills;
 3. uplink: `Transceiver.process_uplink` on 512 carriers over 3
    consecutive 13-frame blocks of the bench recipe (bench.py:162-195),
    checked block by block, timed, with the kernels' launch counts (K1
@@ -49,8 +55,9 @@ prints no result):
    carriers with the bench split, two passes of 5 windows: random
    speech, FACCH and L2 frames transmitted with a silent uplink, then
    that stream looped back; every frame sent decoded exactly once,
-   bit-exact; K1 twice a window; one window profiled, the decode leg
-   profiled and its Viterbi calls timed, both FEC legs run under
+   bit-exact; K1 twice a window, K8 four times; one window profiled,
+   the decode leg profiled and its Viterbi calls timed, both FEC legs
+   run under
    sync-debug "error", a window timed in turns with the FEC-less duplex
    block;
 10. uplink decoded: `uplink_block_decoded_stream` at 512 carriers on the
@@ -68,7 +75,8 @@ prints no result):
     makes a location update, an MO call with 50 GSM 06.10 frames each way
     over a TCH/F, takes an MT SMS, and sends itself an SMS through the
     port's smqueue; step times, FEC call times, one
-    profiled stretch of the call, K7 launched once a daemon frame; then
+    profiled stretch of the call, K7 launched once a daemon frame, K8
+    once a decode call of the channels on the card; then
     the location update again with daemon and app on the CPU: the same
     downlink bursts and L3 messages frame by frame;
 14. the BTS entry point as processes: `BTSApp(spawn_transceiver=True,
@@ -171,12 +179,15 @@ def check(cond: bool, what: str) -> None:
 
 # ---- phase 1 ---------------------------------------------------------------
 
-def phase_card() -> str:
+def phase_card() -> tuple[str, dict]:
+    """The card's name and power limit, and each kernel library's ptxas
+    usage by entry function (`kernel_bakeoff.ptxas_usage`)."""
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     from openbts_ttsou_tpu_torch import build
+    from openbts_ttsou_tpu_torch.tools.kernel_bakeoff import ptxas_usage
 
     nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
@@ -185,8 +196,15 @@ def phase_card() -> str:
     t0 = time.perf_counter()
     out = build.build_all()
     build_s = time.perf_counter() - t0
+    ptxas = {}
     for name, text in out.items():
         log(f"nvcc {name}:\n{text}")
+        ptxas[name] = ptxas_usage(text)
+    k8 = ptxas["viterbi"]
+    check(len(k8) == 1 and all(
+        u["stack"] == u["spill_stores"] == u["spill_loads"] == 0
+        for u in k8.values()),
+          f"K8: ptxas reports stack or spills (or no one kernel): {k8}")
     t0 = time.perf_counter()
     native.load_runtime()
     native_s = time.perf_counter() - t0
@@ -195,21 +213,25 @@ def phase_card() -> str:
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "nvcc": nvcc[-1], "python": sys.version.split()[0],
             "kernels_built": sorted(out), "build_s": build_s,
+            "ptxas": ptxas,
             "native_runtime_s": native_s})
-    return card
+    return card, ptxas
 
 
 # ---- phase 2 ---------------------------------------------------------------
 
-def phase_kernels() -> tuple[dict, dict]:
+def phase_kernels(ptxas: dict) -> tuple[dict, dict, dict]:
     """Each K1 shape through `tools/kernel_bakeoff.py` (the kernel, its
     plain form and one `F.conv1d`, device-timed), held to a compile-time
     instantiation, the plain form's output within 2e-4 of its scale, and
     a host that kept ahead of the device while timing; then each K7 shape
     (`bake_walk`: the kernel and `exact_walk_plain`, device-timed), every
-    output bit-equal to the plain form's. Returns (K1 rows, K7 rows)."""
+    output bit-equal to the plain form's; then each K8 shape
+    (`bake_viterbi`: the kernel and `viterbi_decode_plain`), every bit
+    equal, with its registers and spills from `ptxas` (phase 1). Returns
+    (K1 rows, K7 rows, K8 rows)."""
     from openbts_ttsou_tpu_torch.tools.kernel_bakeoff import (
-        K1_SHAPES, K7_SHAPES, bake, bake_walk)
+        K1_SHAPES, K7_SHAPES, K8_SHAPES, bake, bake_viterbi, bake_walk)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
@@ -247,7 +269,20 @@ def phase_kernels() -> tuple[dict, dict]:
               f"(queue share {r['host_queue_share']:.3f})")
         walks[(frames, carriers)] = r
         record({"phase": "kernels", "kernel": "exact_walk", **r})
-    return rows, walks
+    decodes = {}
+    (usage,) = ptxas["viterbi"].values()
+    for code, n_rows, k in K8_SHAPES:
+        r = bake_viterbi(code, n_rows, k, gen)
+        what = f"K8 {r['geometry']}"
+        check(r["differ"] == 0,
+              f"{what}: {r['differ']} bits differ from the plain form")
+        check(r["host_queue_share"] < 1,
+              f"{what}: the host fell behind the device while timing "
+              f"(queue share {r['host_queue_share']:.3f})")
+        r["ptxas"] = usage
+        decodes[code] = r
+        record({"phase": "kernels", "kernel": "viterbi", **r})
+    return rows, walks, decodes
 
 
 # ---- phase 3 ---------------------------------------------------------------
@@ -1194,7 +1229,8 @@ def phase_resident() -> dict:
     timed in turns with duplex_block_wire on the same uplink and bursts
     (the FEC legs' cost)."""
     from openbts_ttsou_tpu_torch.models import transceiver as T
-    from openbts_ttsou_tpu_torch.ops import cuda_fir, cuda_walk, fir
+    from openbts_ttsou_tpu_torch.ops import (cuda_fir, cuda_viterbi,
+                                             cuda_walk, fir)
     from openbts_ttsou_tpu_torch.parallel.halo import resample_block
 
     c, fn0 = N_CHAN, first_tch_start()
@@ -1216,6 +1252,7 @@ def phase_resident() -> dict:
     r = new_resident(c, fn0, "cuda")
     cuda_fir.polyphase_resample_cuda.launches = 0
     cuda_walk.exact_walk_cuda.launches = 0
+    cuda_viterbi.viterbi_decode_cuda.launches = 0
     blocks, ms = [], []
     for w in range(RES_WINDOWS):
         torch.cuda.synchronize()
@@ -1225,7 +1262,11 @@ def phase_resident() -> dict:
         ms.append((time.perf_counter() - t0) * 1e3)
     launches = {"polyphase_resample":
                 cuda_fir.polyphase_resample_cuda.launches,
-                "exact_walk": cuda_walk.exact_walk_cuda.launches}
+                "exact_walk": cuda_walk.exact_walk_cuda.launches,
+                "viterbi": cuda_viterbi.viterbi_decode_cuda.launches}
+    check(launches["viterbi"] == 4 * RES_WINDOWS,
+          f"resident: K8 launched {launches['viterbi']} times in "
+          f"{RES_WINDOWS} windows, expected 4 a window")
     check(launches["polyphase_resample"] == 2 * RES_WINDOWS,
           f"resident: K1 launched {launches['polyphase_resample']} times in "
           f"{RES_WINDOWS} windows, expected 2 a window")
@@ -2280,6 +2321,9 @@ def ota_sms_via_smqueue(rig: BtsRig) -> dict:
 FEC_CALLS = ("xcch_encode_bursts", "xcch_decode_block", "rach_decode_bits",
              "sch_encode_burst", "facch_encode", "tch_encode_block",
              "map_bursts", "facch_decode_frame", "tch_decode_frame")
+#: the FEC calls that run the Viterbi decoder, once a call
+DECODE_CALLS = ("xcch_decode_block", "rach_decode_bits",
+                "facch_decode_frame", "tch_decode_frame")
 
 
 def timed_fec_calls(times: dict):
@@ -2350,14 +2394,16 @@ def phase_bts() -> dict:
     """The BTS over the air at full C0 width on the card (module
     docstring, phase 13), then the location update again with daemon and
     app on the CPU: the same downlink bursts and L3 messages by FN;
-    K7 once a frame of the daemon, K1 never."""
-    from openbts_ttsou_tpu_torch.ops import cuda_fir, cuda_walk
+    K7 once a frame of the daemon, K8 once a decode call of the
+    channels on the card, K1 never."""
+    from openbts_ttsou_tpu_torch.ops import cuda_fir, cuda_viterbi, cuda_walk
 
     fec_ms: dict = {}
     rig = BtsRig("cuda", BTS_PORT)
     undo = timed_fec_calls(fec_ms)
     cuda_fir.polyphase_resample_cuda.launches = 0
     cuda_walk.exact_walk_cuda.launches = 0
+    cuda_viterbi.viterbi_decode_cuda.launches = 0
     t0 = time.perf_counter()
     try:
         rig.record()
@@ -2376,7 +2422,12 @@ def phase_bts() -> dict:
     session_s = time.perf_counter() - t0
     launches = {"polyphase_resample":
                 cuda_fir.polyphase_resample_cuda.launches,
-                "exact_walk": cuda_walk.exact_walk_cuda.launches}
+                "exact_walk": cuda_walk.exact_walk_cuda.launches,
+                "viterbi": cuda_viterbi.viterbi_decode_cuda.launches}
+    decodes = sum(len(fec_ms.get(name, ())) for name in DECODE_CALLS)
+    check(decodes > 0 and launches["viterbi"] == decodes,
+          f"bts: K8 launched {launches['viterbi']} times in {decodes} "
+          f"decode calls on the card, expected 1 a call")
     check(launches["polyphase_resample"] == 0,
           f"bts: K1 launched {launches} on the symbol-rate path")
     frames = len(rig.daemon_ms)
@@ -3261,14 +3312,16 @@ def phase_bench() -> dict:
     return out
 
 
-def kernels_line(kern: dict, walks: dict, launches: dict) -> dict:
+def kernels_line(kern: dict, walks: dict, decodes: dict,
+                 launches: dict) -> dict:
     """The `kernels` record: K1 at the uplink shape, every shape's times
     beside its bound, and its launches on each main path (uplink,
     duplex, daemon, ..., sharded, soak, tools, bench), each counted
     from zero over that path's run (bench: in each bench process); K7
     at its shapes, and its launches on the paths that count them (uplink,
     duplex, resident: one a block; bts: one a frame of the per-frame
-    daemon)."""
+    daemon); K8 alike (resident: four a window; bts: one a decode
+    call)."""
     from openbts_ttsou_tpu_torch.tools.kernel_bakeoff import K1_SHAPES
 
     rows, p, q, _, t_in = K1_SHAPES[0]
@@ -3300,7 +3353,19 @@ def kernels_line(kern: dict, walks: dict, launches: dict) -> dict:
         "differ": sum(r["differ"] for r in walks.values()),
         "shapes": [{k: r[k] for k in ("geometry", "ms", "plain_ms",
                                       "bound_ms", "bound_share")}
-                   for r in walks.values()]}]}
+                   for r in walks.values()]}, {
+        "name": "viterbi", "route": "cuda",
+        "source": "openbts_ttsou_tpu_torch/csrc/viterbi.cu",
+        "replaces": "none: the JAX package's decoder is a lax.scan "
+                    "(openbts_ttsou_tpu/gsm/fec.py:167 viterbi_decode)",
+        "launches_by_path": {path: n["viterbi"]
+                             for path, n in launches.items()
+                             if "viterbi" in n},
+        "differ": sum(r["differ"] for r in decodes.values()),
+        "ptxas": next(iter(decodes.values()))["ptxas"],
+        "shapes": [{k: r[k] for k in ("geometry", "ms", "plain_ms",
+                                      "bound_ms", "bound_share")}
+                   for r in decodes.values()]}]}
 
 
 def main() -> int:
@@ -3318,8 +3383,8 @@ def main() -> int:
         phase_s[name] = time.perf_counter() - t0
         return out
 
-    card = timed("card", phase_card)
-    kern, walks = timed("kernels", phase_kernels)
+    card, ptxas = timed("card", phase_card)
+    kern, walks, decodes = timed("kernels", phase_kernels, ptxas)
     if "--kernels-only" in sys.argv[1:]:  # phases 1-2: build and time
         print(card, flush=True)
         return 0
@@ -3355,7 +3420,8 @@ def main() -> int:
                 "usrp_bus": bus["launches"], "bts": bts["launches"],
                 "sharded": sharded["launches"], "soak": tools["launches"],
                 "tools": tools["tools_launches"], "bench": bench["launches"]}
-    print(json.dumps(kernels_line(kern, walks, launches)), flush=True)
+    print(json.dumps(kernels_line(kern, walks, decodes, launches)),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,7 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
 SOURCES = {
     "polyphase_resample": "polyphase_resample.cu",
     "exact_walk": "exact_walk.cu",
+    "viterbi": "viterbi.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -11,9 +11,10 @@ BitVector.cpp:289-525) — and the GSM 05.03 interleaving formulas of
   decoder (deferral 24: emit the bit 24 steps back of the current best
   survivor, no traceback) bit for bit, including its tie-breaking: a
   strict `<` keeps the 0-prefix candidate, and the survivor is the first
-  minimum. The branch metrics of every step are computed in one batched
-  pass; the step loop then issues only the add-compare-select (ten
-  tensor ops a step).
+  minimum. On the card it is one kernel launch a call (K8,
+  `csrc/viterbi.cu`); the plain form for CPU tensors computes the branch
+  metrics of every step in one batched pass, then issues only the
+  add-compare-select (ten tensor ops a step).
 * CRC state is a GF(2) product of the bits with the LFSR's unit-response
   matrix: exact in float32, since the sums are integers at most 228.
 * Interleavers are constant index maps applied as gathers/scatters; every
@@ -28,7 +29,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from openbts_ttsou_tpu_torch.ops import cuda_viterbi
 from openbts_ttsou_tpu_torch.utils import constants as C
+from openbts_ttsou_tpu_torch.utils.profiling import span
 from openbts_ttsou_tpu_torch.utils.tables import copy_table, device_table
 
 # ---------------------------------------------------------------------------
@@ -185,12 +188,37 @@ def _viterbi_low_bit() -> np.ndarray:
     return np.arange(V_STATES, dtype=np.int64) & 1
 
 
+def codeword_rows(soft: torch.Tensor) -> torch.Tensor:
+    """soft [..., 2K] as the kernel's [rows, 2K]: a view wherever the
+    leading axes flatten to one row stride (so a slice of wider rows,
+    TCH's [..., :378] or RACH's 36 bits of 148, is read in place), else a
+    contiguous copy."""
+    rows = soft.reshape(-1, soft.shape[-1])
+    return rows if rows.stride(-1) == 1 else rows.contiguous()
+
+
+@span("fec.viterbi")
 def viterbi_decode(soft: torch.Tensor) -> torch.Tensor:
+    """Soft-input Viterbi decode: [..., 2K] soft bits in [0,1] → [..., K]
+    uint8 hard bits (K8): on CUDA tensors one launch of the kernel
+    (`ops/cuda_viterbi.py`), on CPU tensors `viterbi_decode_plain`. The
+    same bits, ties included."""
+    soft = soft.to(torch.float32)
+    if soft.is_cuda:
+        bits = cuda_viterbi.viterbi_decode_cuda(codeword_rows(soft))
+        return bits.reshape(soft.shape[:-1] + bits.shape[-1:])
+    if soft.device.type != "cpu":
+        raise ValueError(f"viterbi_decode: no kernel for {soft.device}")
+    return viterbi_decode_plain(soft)
+
+
+def viterbi_decode_plain(soft: torch.Tensor) -> torch.Tensor:
     """Soft-input Viterbi decode: [..., 2K] soft bits in [0,1] → [..., K]
     uint8 hard bits. Bit-exact emulation of SoftVector::decode +
     ViterbiR2O4::step (BitVector.cpp:289-525): deferred-decision decoder
     with deferral 24, cost tables 0.25/clamped probabilities, hard-sliced
-    branch comparison, 0-prefix-preferred pruning.
+    branch comparison, 0-prefix-preferred pruning. The CPU path, and what
+    the card tests hold the kernel to.
 
     The histories are int64 (only bit 24 of a history is ever read, so
     the bits a wider word keeps above bit 31 change nothing)."""

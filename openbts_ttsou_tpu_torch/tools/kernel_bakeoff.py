@@ -3,7 +3,10 @@ give it: the hand-written CUDA kernel, its plain PyTorch form
 (`cuda_fir.polyphase_resample_plain`) and one float32 `F.conv1d` of the
 same filter bank with TF32 off (a yardstick the port never calls). K7,
 the threshold walk, two ways (`bake_walk`): the kernel and
-`exact_walk_plain`, at `K7_SHAPES` (`chip_smoke.py` phase 2 runs it).
+`exact_walk_plain`, at `K7_SHAPES`; K8, the Viterbi decoder, two ways
+(`bake_viterbi`): the kernel and `viterbi_decode_plain`, at
+`K8_SHAPES` (`chip_smoke.py` phase 2 runs both). `ptxas_usage` reads
+each kernel's registers, stack and spills from the build's output.
 
 For each shape: device ms of each path (CUDA events, the calls queued
 behind a device sleep so the host's dispatch stays out), the kernel's
@@ -18,13 +21,14 @@ wall clock.
 
 from __future__ import annotations
 
+import re
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from openbts_ttsou_tpu_torch.tools import common
+from openbts_ttsou_tpu_torch.tools import common, roofline
 
 TOOL = "kernel_bakeoff"
 N_CHAN = 512
@@ -40,6 +44,11 @@ K1_SHAPES = ((N_CHAN, 65, 96, 961, 24000), (N_CHAN, 96, 65, 651, 16250),
 #: K7's shapes on the main paths, (frames, carriers) of [F, C, 8]: the
 #: 13-frame block at 512 carriers and at the batched schedule's largest
 K7_SHAPES = ((13, N_CHAN), (13, 4 * N_CHAN))
+
+#: K8's shapes on the main paths, (code, rows, K) of [rows, 2K]: the four
+#: calls of a resident window at 512 carriers
+K8_SHAPES = tuple((kind, per_chan * N_CHAN, k)
+                  for kind, (per_chan, k) in roofline.VITERBI_KINDS.items())
 
 
 def bound_ms(rows: int, t_in: int, p: int, q: int,
@@ -162,6 +171,58 @@ def bake_walk(frames: int, carriers: int, gen: torch.Generator,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": bound_by, "bound_share": bound / ms,
             "host_queue_share": ahead}
+
+
+def bake_viterbi(code: str, rows: int, k: int, gen: torch.Generator,
+                 reps: int = 25) -> dict:
+    """K8 at [rows, 2K] on the card, on soft bits of random codewords
+    (Gaussian noise, 5% erased): the kernel's and the plain form's device
+    ms, the bound (`roofline.k8_work`) and the count of decoded bits that
+    differ from the plain form's (0: bit for bit)."""
+    from openbts_ttsou_tpu_torch.gsm import fec
+
+    dev = torch.device("cuda")
+    u = torch.randint(0, 2, (rows, k), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    c = fec.conv_encode(u).to(torch.float32)
+    soft = (c + 0.3 * torch.randn(c.shape, generator=gen, device=dev)
+            ).clamp(0, 1)
+    soft[torch.rand(c.shape, generator=gen, device=dev) < 0.05] = 0.5
+    got, want = fec.viterbi_decode(soft), fec.viterbi_decode_plain(soft)
+    torch.cuda.synchronize()
+    bound, bound_by = roofline.bound_ms(roofline.k8_work(rows, k),
+                                        common.HBM_BYTES_PER_S,
+                                        common.FP32_FLOPS)
+    ms, ahead = common.cuda_ms(lambda: fec.viterbi_decode(soft), reps)
+    # ~2,500 launches a call: its interval is the host's dispatch
+    plain_ms, _ = common.cuda_ms(lambda: fec.viterbi_decode_plain(soft), 3)
+    return {"geometry": f"{code} [{rows}, {2 * k}]",
+            "differ": int((got != want).sum()),
+            "max_abs_err": int((got.int() - want.int()).abs().max()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "bound_share": bound / ms,
+            "host_queue_share": ahead}
+
+
+def ptxas_usage(text: str) -> dict:
+    """{entry function: {registers, stack, spill_stores, spill_loads}}
+    from nvcc's `-Xptxas=-v` output (bytes, but registers)."""
+    usage, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            usage[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            usage[name].update(zip(("stack", "spill_stores", "spill_loads"),
+                                   map(int, m.groups())))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage[name]["registers"] = int(m.group(1))
+    return usage
 
 
 def bake_cpu(rows: int, p: int, q: int, taps: int, t_in: int,

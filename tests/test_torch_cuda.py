@@ -9,9 +9,12 @@ import numpy as np
 import pytest
 import torch
 
+import viterbi_cases
 import walk_cases
+from openbts_ttsou_tpu_torch.gsm import fec
 from openbts_ttsou_tpu_torch.models import transceiver as T
 from openbts_ttsou_tpu_torch.ops import cuda_fir
+from openbts_ttsou_tpu_torch.ops import cuda_viterbi
 from openbts_ttsou_tpu_torch.ops import cuda_walk
 from openbts_ttsou_tpu_torch.ops import fir
 from openbts_ttsou_tpu_torch.ops import gmsk
@@ -285,6 +288,96 @@ def test_viterbi_tie_rule_on_card(card):
     want = fec.viterbi_decode(x)
     assert torch.equal(got, want)
     assert not got[:16].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code,k", viterbi_cases.CODES)
+@pytest.mark.parametrize("rows", [1, 7, 4099])
+def test_viterbi_kernel_matches_plain(card, code, k, rows):
+    """K8 against `viterbi_decode_plain` on the card, bit for bit, on
+    every kind of `viterbi_cases.soft_inputs` (clean, Gaussian, flipped,
+    all erased, an erased stretch, the clamps' and slicer's exact
+    values): one launch a call."""
+    for seed, kind in enumerate(viterbi_cases.KINDS):
+        soft = torch.from_numpy(
+            viterbi_cases.soft_inputs(kind, rows, k, seed)).cuda()
+        n0 = cuda_viterbi.viterbi_decode_cuda.launches
+        got = fec.viterbi_decode(soft)
+        assert cuda_viterbi.viterbi_decode_cuda.launches == n0 + 1
+        want = fec.viterbi_decode_plain(soft)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got, want), kind
+
+
+@pytest.mark.cuda
+def test_viterbi_kernel_reads_slices_in_place(card):
+    """TCH's [..., :378] of 456-bit rows and RACH's 36 bits of 148-bit
+    bursts, decoded where they lie, equal the plain form's decode; NaN
+    and ±inf soft bits as the plain form takes them."""
+    rng = np.random.default_rng(12)
+    c_soft = torch.from_numpy(rng.random((5, 8, 456), np.float32)).cuda()
+    bursts = torch.from_numpy(rng.random((13, 3, 8, 148), np.float32))
+    bursts[0, 0, 0, 60] = np.nan
+    bursts[1, 1, 1, 50:70] = np.nan
+    bursts[2, 2, 2, 55] = np.inf
+    bursts[3, 0, 3, 56] = -np.inf
+    bursts = bursts.cuda()
+    for soft in (c_soft[..., :378], bursts[..., 49:85]):
+        n0 = cuda_viterbi.viterbi_decode_cuda.launches
+        got = fec.viterbi_decode(soft)
+        assert cuda_viterbi.viterbi_decode_cuda.launches == n0 + 1
+        assert torch.equal(got, fec.viterbi_decode_plain(soft))
+
+
+@pytest.mark.cuda
+def test_viterbi_kernel_refuses_bad_input(card):
+    soft = torch.rand(4, 456, device="cuda")
+    n0 = cuda_viterbi.viterbi_decode_cuda.launches
+    for bad, error in ((soft.cpu(), ValueError),
+                       (soft.double(), TypeError),
+                       (soft[:, ::2], ValueError),
+                       (soft[:, :455], ValueError),
+                       (soft[None], ValueError)):
+        with pytest.raises(error):
+            cuda_viterbi.viterbi_decode_cuda(bad)
+    assert cuda_viterbi.viterbi_decode_cuda.launches == n0
+    empty = cuda_viterbi.viterbi_decode_cuda(soft[:0])
+    assert empty.shape == (0, 228)
+    assert cuda_viterbi.viterbi_decode_cuda.launches == n0
+
+
+@pytest.mark.cuda
+def test_resident_step_decodes_with_four_viterbi_launches(card):
+    """One `ResidentL1.step` at 4 carriers launches K8 four times (XCCH,
+    RACH, TCH, FACCH), with every DecodedBlocks field the CPU's."""
+    from openbts_ttsou_tpu_torch.models import ResidentL1
+
+    c, fn0 = 4, 52
+    rng = np.random.default_rng(13)
+    spec = T.UplinkSpec()
+    tch_mask = np.zeros((c, 8), bool)
+    tch_mask[:, 2:6] = True
+    content = (rng.integers(0, 2, (4, c, 8, 184)).astype(np.uint8),
+               rng.random((4, c, 8)) < 0.8,
+               rng.integers(0, 2, (3, c, 8, 260)).astype(np.uint8),
+               rng.random((3, c, 8)) < 0.8,
+               rng.integers(0, 2, (3, c, 8, 184)).astype(np.uint8),
+               rng.random((3, c, 8)) < 0.3, tch_mask)
+    shape = (c, spec.block_in + 2 * T.RX_HALO_DEV)
+    ul = ((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+          * 100.0).astype(np.complex64)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        r = ResidentL1(eng.TrxConfig(n_chan=c), spec,
+                       xcch_tns=(0, 1, 6, 7), tch_tns=(2, 3, 4, 5),
+                       fn0=fn0, device=dev)
+        n0 = cuda_viterbi.viterbi_decode_cuda.launches
+        outs[dev] = r.step(ul, content)[1]
+        n = cuda_viterbi.viterbi_decode_cuda.launches - n0
+        assert n == (4 if dev == "cuda" else 0), (dev, n)
+    for name in T.DecodedBlocks._fields:
+        assert torch.equal(getattr(outs["cuda"], name).cpu(),
+                           getattr(outs["cpu"], name)), name
 
 
 def _decode_inputs(c, rng):
