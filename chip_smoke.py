@@ -9,7 +9,8 @@ prints no result):
 
 1. card: name, power limit, torch/CUDA/nvcc versions; build every CUDA
    kernel from `openbts_ttsou_tpu_torch/csrc/` (each entry function's
-   registers, stack and spills from ptxas; K8's without stack or spills)
+   registers, stack and spills from ptxas; K5's and K8's without stack
+   or spills)
    and the port's native runtime (`csrc/runtime/` with g++, the
    daemon's sockets and queues);
 2. kernels: each kernel against its plain PyTorch version on the card,
@@ -26,18 +27,24 @@ prints no result):
    K8, the Viterbi decoder, against `viterbi_decode_plain` at a
    512-carrier window's four calls (XCCH [10240, 456], RACH [53248, 36],
    TCH [8192, 378], FACCH [8192, 456]), every bit equal, with both
-   device times, the bound and the kernel's registers and spills;
+   device times, the bound and the kernel's registers and spills; K5,
+   the DFE's feedback recursion, against `feedback_recursion_plain` at
+   a block's [53248, 157] and a frame's [4096, 157] (ν 5), every soft
+   bit equal, with both device times, the bound and its share;
 3. uplink: `Transceiver.process_uplink` on 512 carriers over 3
    consecutive 13-frame blocks of the bench recipe (bench.py:162-195),
    checked block by block, timed, with the kernels' launch counts (K1
-   and K7 one a block);
+   and K7 one a block); then the same blocks at max delay 4 on every
+   carrier (the stock cell's SETMAXDELAY 4), K1, K7 and K5 one a block,
+   bit-equal to `equalize_burst_plain` in the equalizer's place;
 4. profile: one more uplink block under torch.profiler (device busy and
    idle share, device events, the kernels that take the time), and both
    exact schedules timed on one block from one entry state, results
    compared;
 5. card against CPU: the batched exact schedule on adversarial streams
    (RACH frames, energy without detection, DFE carriers) on the card and
-   on the CPU, results and final state compared;
+   on the CPU, results and final state compared, K5 launched in the
+   blocks whose equalizer gate opens;
 6. duplex: `duplex_block_compact` on 512 carriers over 3 consecutive
    blocks of one continuous stream (the bench recipe's uplink with its
    halos, a downlink of known bits on slot 1 of every frame and filler
@@ -187,6 +194,7 @@ def phase_card() -> tuple[str, dict]:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     from openbts_ttsou_tpu_torch import build
+    from openbts_ttsou_tpu_torch.ops import cuda_dfe
     from openbts_ttsou_tpu_torch.tools.kernel_bakeoff import ptxas_usage
 
     nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
@@ -205,6 +213,12 @@ def phase_card() -> tuple[str, dict]:
         u["stack"] == u["spill_stores"] == u["spill_loads"] == 0
         for u in k8.values()),
           f"K8: ptxas reports stack or spills (or no one kernel): {k8}")
+    k5 = ptxas["dfe_equalize"]  # one instantiation a feedback depth
+    check(len(k5) == len(cuda_dfe.DEPTHS) and all(
+        u["stack"] == u["spill_stores"] == u["spill_loads"] == 0
+        for u in k5.values()),
+          f"K5: ptxas reports stack or spills (or not one kernel a depth "
+          f"of {cuda_dfe.DEPTHS}): {k5}")
     t0 = time.perf_counter()
     native.load_runtime()
     native_s = time.perf_counter() - t0
@@ -220,7 +234,7 @@ def phase_card() -> tuple[str, dict]:
 
 # ---- phase 2 ---------------------------------------------------------------
 
-def phase_kernels(ptxas: dict) -> tuple[dict, dict, dict]:
+def phase_kernels(ptxas: dict) -> tuple[dict, dict, dict, dict]:
     """Each K1 shape through `tools/kernel_bakeoff.py` (the kernel, its
     plain form and one `F.conv1d`, device-timed), held to a compile-time
     instantiation, the plain form's output within 2e-4 of its scale, and
@@ -228,10 +242,13 @@ def phase_kernels(ptxas: dict) -> tuple[dict, dict, dict]:
     (`bake_walk`: the kernel and `exact_walk_plain`, device-timed), every
     output bit-equal to the plain form's; then each K8 shape
     (`bake_viterbi`: the kernel and `viterbi_decode_plain`), every bit
-    equal, with its registers and spills from `ptxas` (phase 1). Returns
-    (K1 rows, K7 rows, K8 rows)."""
+    equal, with its registers and spills from `ptxas` (phase 1); then
+    each K5 shape (`bake_equalize`: the kernel and
+    `feedback_recursion_plain`), every soft bit equal. Returns (K1 rows,
+    K7 rows, K8 rows, K5 rows)."""
     from openbts_ttsou_tpu_torch.tools.kernel_bakeoff import (
-        K1_SHAPES, K7_SHAPES, K8_SHAPES, bake, bake_viterbi, bake_walk)
+        K1_SHAPES, K5_SHAPES, K7_SHAPES, K8_SHAPES, bake, bake_equalize,
+        bake_viterbi, bake_walk)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
@@ -282,7 +299,20 @@ def phase_kernels(ptxas: dict) -> tuple[dict, dict, dict]:
         r["ptxas"] = usage
         decodes[code] = r
         record({"phase": "kernels", "kernel": "viterbi", **r})
-    return rows, walks, decodes
+    equalizes = {}
+    for bursts, t, nu in K5_SHAPES:
+        r = bake_equalize(bursts, t, nu, gen)
+        what = f"K5 {r['geometry']}"
+        check(r["differ"] == 0,
+              f"{what}: {r['differ']} soft bits differ from the plain form")
+        check(r["host_queue_share"] < 1,
+              f"{what}: the host fell behind the device while timing "
+              f"(queue share {r['host_queue_share']:.3f})")
+        r["ptxas"] = next((u for name, u in ptxas["dfe_equalize"].items()
+                           if f"ILi{nu}E" in name), None)
+        equalizes[(bursts, t, nu)] = r
+        record({"phase": "kernels", "kernel": "dfe_equalize", **r})
+    return rows, walks, decodes, equalizes
 
 
 # ---- phase 3 ---------------------------------------------------------------
@@ -371,6 +401,82 @@ def phase_main_path():
            "device": torch.cuda.get_device_name(0)}
     record(out)
     return out, trx, x
+
+
+def phase_main_path_dfe(x: torch.Tensor) -> dict:
+    """Phase 3's blocks with the stock OpenBTS bring-up's max delay of 4
+    on every carrier (SETMAXDELAY 4, the `rxbank512dfe` cell's path), so
+    every TSC slot is channel-estimated and equalized: K1, K7 and K5 one
+    launch a block; each block's results and the carried state bit-equal
+    to a second transceiver's with `equalize_burst_plain` in the
+    equalizer's place; every slot-1 burst detected at timing 6, its
+    channel adopted."""
+    from openbts_ttsou_tpu_torch.models.transceiver import UplinkSpec
+    from openbts_ttsou_tpu_torch.ops import cuda_dfe, cuda_fir, cuda_walk, dfe
+    from openbts_ttsou_tpu_torch.trx.engine import TrxConfig
+
+    c = x.shape[0]
+    cfg = TrxConfig(n_chan=c)
+    spec = UplinkSpec(frames=13)
+
+    def stock_cell():
+        trx = new_transceiver(cfg, spec)
+        trx.state = trx.state._replace(max_expected_delay=torch.full(
+            (c,), 4, dtype=torch.int32, device=x.device))
+        return trx
+
+    stock_cell().process_uplink(x)  # warm block
+    torch.cuda.synchronize()
+    trx, plain = stock_cell(), stock_cell()
+    cuda_fir.polyphase_resample_cuda.launches = 0
+    cuda_walk.exact_walk_cuda.launches = 0
+    cuda_dfe.equalize_cuda.launches = 0
+    results, states = [], []
+    t0 = time.perf_counter()
+    for _ in range(BLOCKS):
+        results.append(trx.process_uplink(x))
+        states.append(trx.state)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"polyphase_resample": cuda_fir.polyphase_resample_cuda.launches,
+                "exact_walk": cuda_walk.exact_walk_cuda.launches,
+                "dfe_equalize": cuda_dfe.equalize_cuda.launches}
+    results = [type(r)(*(t.clone() for t in r)) for r in results]
+    states = [type(st)(*(t.clone() for t in st)) for st in states]
+    for name, n in launches.items():
+        check(n == BLOCKS, f"uplink_dfe: {name} launched {n} times in "
+                           f"{BLOCKS} blocks, expected 1 a block")
+
+    real = dfe.equalize_burst
+    dfe.equalize_burst = dfe.equalize_burst_plain
+    try:
+        for k, (res, st) in enumerate(zip(results, states)):
+            want = plain.process_uplink(x)
+            for name in res._fields:
+                check(torch.equal(getattr(res, name), getattr(want, name)),
+                      f"uplink_dfe block {k}: {name} differs from the "
+                      f"plain equalizer's")
+            for name in st._fields:
+                check(torch.equal(getattr(st, name),
+                                  getattr(plain.state, name)),
+                      f"uplink_dfe block {k}: state {name} differs from "
+                      f"the plain equalizer's")
+            det = res.detected
+            check(bool(det[:, :, 1].all()),
+                  f"uplink_dfe block {k}: slot-1 burst missed")
+            check(bool((res.timing[det] == 6).all()),
+                  f"uplink_dfe block {k}: timing != 6")
+            check(bool(st.chan_valid[:, 1].all()),
+                  f"uplink_dfe block {k}: slot 1's channel not adopted")
+    finally:
+        dfe.equalize_burst = real
+    check(cuda_dfe.equalize_cuda.launches == BLOCKS,
+          "uplink_dfe: the plain equalizer launched K5")
+    out = {"phase": "main_path_dfe", "carriers": c, "blocks": BLOCKS,
+           "max_delay": 4, "ms_per_block": dt / BLOCKS * 1e3,
+           "launches": launches}
+    record(out)
+    return out
 
 
 # ---- phase 4 ---------------------------------------------------------------
@@ -511,6 +617,7 @@ def check_states(card_state, cpu_state, what: str) -> None:
 
 def phase_card_vs_cpu() -> dict:
     from openbts_ttsou_tpu_torch.models.transceiver import process_block_exact
+    from openbts_ttsou_tpu_torch.ops import cuda_dfe
     from openbts_ttsou_tpu_torch.trx.engine import TrxConfig
 
     c, frames = 4, 13
@@ -518,6 +625,7 @@ def phase_card_vs_cpu() -> dict:
     streams = adversarial_streams(np.random.default_rng(5), c, frames, 3)
     states = {dev: adversarial_state(cfg, dev) for dev in ("cuda", "cpu")}
     n_det = n_rach = n_dfe = 0
+    cuda_dfe.equalize_cuda.launches = 0
     for k, sym in enumerate(streams):
         res = {}
         for dev in ("cuda", "cpu"):
@@ -535,7 +643,12 @@ def phase_card_vs_cpu() -> dict:
         n_dfe += int(states["cpu"].chan_valid.sum())
     check(n_det > 0 and n_rach > 0 and n_dfe > 0,
           "adversarial streams left detection, RACH or the DFE unexercised")
+    k5 = cuda_dfe.equalize_cuda.launches
+    check(0 < k5 <= len(streams),
+          f"card_vs_cpu: K5 launched {k5} times in {len(streams)} blocks, "
+          f"expected at most 1 a block and some")
     out = {"phase": "card_vs_cpu", "carriers": c, "blocks": len(streams),
+           "launches": {"dfe_equalize": k5},
            "detections": n_det, "rach_detections": n_rach,
            "valid_dfe_slots_summed": n_dfe,
            "soft_bits_tolerance": 2e-4}
@@ -2396,11 +2509,13 @@ def phase_bts() -> dict:
     app on the CPU: the same downlink bursts and L3 messages by FN;
     K7 once a frame of the daemon, K8 once a decode call of the
     channels on the card, K1 never."""
-    from openbts_ttsou_tpu_torch.ops import cuda_fir, cuda_viterbi, cuda_walk
+    from openbts_ttsou_tpu_torch.ops import (cuda_dfe, cuda_fir, cuda_viterbi,
+                                             cuda_walk)
 
     fec_ms: dict = {}
     rig = BtsRig("cuda", BTS_PORT)
     undo = timed_fec_calls(fec_ms)
+    cuda_dfe.equalize_cuda.launches = 0
     cuda_fir.polyphase_resample_cuda.launches = 0
     cuda_walk.exact_walk_cuda.launches = 0
     cuda_viterbi.viterbi_decode_cuda.launches = 0
@@ -2423,7 +2538,8 @@ def phase_bts() -> dict:
     launches = {"polyphase_resample":
                 cuda_fir.polyphase_resample_cuda.launches,
                 "exact_walk": cuda_walk.exact_walk_cuda.launches,
-                "viterbi": cuda_viterbi.viterbi_decode_cuda.launches}
+                "viterbi": cuda_viterbi.viterbi_decode_cuda.launches,
+                "dfe_equalize": cuda_dfe.equalize_cuda.launches}
     decodes = sum(len(fec_ms.get(name, ())) for name in DECODE_CALLS)
     check(decodes > 0 and launches["viterbi"] == decodes,
           f"bts: K8 launched {launches['viterbi']} times in {decodes} "
@@ -2434,6 +2550,9 @@ def phase_bts() -> dict:
     check(launches["exact_walk"] == frames,
           f"bts: K7 launched {launches['exact_walk']} times in {frames} "
           f"daemon frames, expected 1 a frame")
+    check(launches["dfe_equalize"] <= frames,
+          f"bts: K5 launched {launches['dfe_equalize']} times in {frames} "
+          f"daemon frames, expected at most 1 a frame (max delay 4)")
 
     cpu = BtsRig("cpu", BTS_PORT + 10)
     try:
@@ -3312,7 +3431,7 @@ def phase_bench() -> dict:
     return out
 
 
-def kernels_line(kern: dict, walks: dict, decodes: dict,
+def kernels_line(kern: dict, walks: dict, decodes: dict, equalizes: dict,
                  launches: dict) -> dict:
     """The `kernels` record: K1 at the uplink shape, every shape's times
     beside its bound, and its launches on each main path (uplink,
@@ -3321,14 +3440,17 @@ def kernels_line(kern: dict, walks: dict, decodes: dict,
     at its shapes, and its launches on the paths that count them (uplink,
     duplex, resident: one a block; bts: one a frame of the per-frame
     daemon); K8 alike (resident: four a window; bts: one a decode
-    call)."""
+    call); K5 alike (uplink_dfe: one a block; card_vs_cpu: one a block
+    whose equalizer gate opens; bts: one a daemon frame whose gate
+    opens)."""
     from openbts_ttsou_tpu_torch.tools.kernel_bakeoff import K1_SHAPES
 
     rows, p, q, _, t_in = K1_SHAPES[0]
     up = kern[rows, p, q, t_in]
     keys = ("instantiation", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_share", "gbytes_per_s")
-    by_path = {path: n["polyphase_resample"] for path, n in launches.items()}
+    by_path = {path: n["polyphase_resample"] for path, n in launches.items()
+               if "polyphase_resample" in n}
     return {"kernels": [{
         "name": "polyphase_resample", "route": "cuda",
         "source": "openbts_ttsou_tpu_torch/csrc/polyphase_resample.cu",
@@ -3365,7 +3487,20 @@ def kernels_line(kern: dict, walks: dict, decodes: dict,
         "ptxas": next(iter(decodes.values()))["ptxas"],
         "shapes": [{k: r[k] for k in ("geometry", "ms", "plain_ms",
                                       "bound_ms", "bound_share")}
-                   for r in decodes.values()]}]}
+                   for r in decodes.values()]}, {
+        "name": "dfe_equalize", "route": "cuda",
+        "source": "openbts_ttsou_tpu_torch/csrc/dfe_equalize.cu",
+        "replaces": "none: the JAX package's recursion is a lax.scan "
+                    "(openbts_ttsou_tpu/ops/dfe.py:93 equalize_burst)",
+        "launches_by_path": {path: n["dfe_equalize"]
+                             for path, n in launches.items()
+                             if "dfe_equalize" in n},
+        "differ": sum(r["differ"] for r in equalizes.values()),
+        "ptxas": next(iter(equalizes.values()))["ptxas"],
+        "shapes": [{k: r[k] for k in ("geometry", "ms", "plain_ms",
+                                      "bound_ms", "bound_share",
+                                      "gbytes_per_s")}
+                   for r in equalizes.values()]}]}
 
 
 def main() -> int:
@@ -3384,15 +3519,17 @@ def main() -> int:
         return out
 
     card, ptxas = timed("card", phase_card)
-    kern, walks, decodes = timed("kernels", phase_kernels, ptxas)
+    kern, walks, decodes, equalizes = timed("kernels", phase_kernels, ptxas)
     if "--kernels-only" in sys.argv[1:]:  # phases 1-2: build and time
         print(card, flush=True)
         return 0
     main_path, trx, x = timed("main_path", phase_main_path)
     timed("profile", phase_profile, trx.cfg, trx.spec, trx, x,
           main_path["ms_per_block"])
-    del trx, x
-    timed("card_vs_cpu", phase_card_vs_cpu)
+    del trx
+    main_path_dfe = timed("main_path_dfe", phase_main_path_dfe, x)
+    del x
+    card_vs_cpu = timed("card_vs_cpu", phase_card_vs_cpu)
     duplex = timed("duplex", phase_duplex)
     daemon = timed("daemon", phase_daemon)
     timed("duplex_card_vs_cpu", phase_duplex_card_vs_cpu)
@@ -3414,13 +3551,15 @@ def main() -> int:
             "total_s": time.perf_counter() - t_start})
 
     launches = {"uplink": main_path["launches"],
+                "uplink_dfe": main_path_dfe["launches"],
+                "card_vs_cpu": card_vs_cpu["launches"],
                 "duplex": duplex["launches"], "daemon": daemon["launches"],
                 "resident": resident["launches"],
                 "uplink_decoded": uplink_decoded["launches"],
                 "usrp_bus": bus["launches"], "bts": bts["launches"],
                 "sharded": sharded["launches"], "soak": tools["launches"],
                 "tools": tools["tools_launches"], "bench": bench["launches"]}
-    print(json.dumps(kernels_line(kern, walks, decodes, launches)),
+    print(json.dumps(kernels_line(kern, walks, decodes, equalizes, launches)),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,7 @@ SOURCES = {
     "polyphase_resample": "polyphase_resample.cu",
     "exact_walk": "exact_walk.cu",
     "viterbi": "viterbi.cu",
+    "dfe_equalize": "dfe_equalize.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -3,15 +3,16 @@
 Port of `openbts_ttsou_tpu/ops/dfe.py`. Reference behavior:
 `Transceiver/sigProcLib.cpp:1246-1340` (designDFE, the Al-Dhahir &
 Cioffi Cholesky-factor recursion) and `:1343-1399` (equalizeBurst).
-The batch is an explicit leading dimension; the per-symbol feedback
-recursion is a Python loop over the burst's samples.
+The batch is an explicit leading dimension. The per-symbol feedback
+recursion is one launch of K5 (`csrc/dfe_equalize.cu`) on the card and
+a Python loop over the burst's samples on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
-from openbts_ttsou_tpu_torch.ops import fir, gmsk
+from openbts_ttsou_tpu_torch.ops import cuda_dfe, fir, gmsk
 from openbts_ttsou_tpu_torch.utils.tables import copy_table
 
 
@@ -76,6 +77,48 @@ def design_dfe(chan: torch.Tensor, snr: torch.Tensor, nf: int = 7):
     return w.reshape(lead + (nf,)), b.reshape(lead + b.shape[-1:])
 
 
+def _feedforward(burst: torch.Tensor, toa: torch.Tensor,
+                 feedforward: torch.Tensor) -> torch.Tensor:
+    """Un-delay each burst by its TOA, then its feedforward filter:
+    [B, T] complex64."""
+    assert burst.ndim == 2, "equalize_burst expects [batch, time]"
+    t = burst.shape[-1]
+    nf = feedforward.shape[-1]
+    x = gmsk.delay_vector(burst, -toa.to(torch.float32))
+    return fir.convolve(x, feedforward, fir.CUSTOM, start=nf - 1, length=t)
+
+
+def feedback_recursion_plain(pf: torch.Tensor, feedback: torch.Tensor,
+                             rot: torch.Tensor) -> torch.Tensor:
+    """The per-symbol recursion over the ring of the last nu rotated hard
+    decisions, then the slicer: pf [B, T] complex64 (the feedforward
+    output), feedback [B, nu] complex64, rot [T] complex64 → soft bits
+    [B, T] in [0, 1]. K5's plain form, one eager step at a time."""
+    bsz, t = pf.shape
+    nu = feedback.shape[-1]
+    rev = torch.conj_physical(rot)
+    hist = torch.zeros((bsz, nu), dtype=torch.complex64, device=pf.device)
+    one = torch.ones((), dtype=torch.complex64, device=pf.device)
+    soft_pre = []
+    for i in range(t):
+        d = pf[:, i] + (feedback * hist).sum(-1)
+        s = d * rev[i]
+        dec = torch.where(s.real > 0.0, one, -one)
+        hist = torch.cat([(dec * rot[i])[:, None], hist[:, :-1]], 1)
+        soft_pre.append(s)
+    return gmsk.vector_slicer(torch.stack(soft_pre, -1))  # [B, T]
+
+
+def equalize_burst_plain(burst: torch.Tensor, toa: torch.Tensor, sps: int,
+                         feedforward: torch.Tensor,
+                         feedback: torch.Tensor) -> torch.Tensor:
+    """`equalize_burst` with its recursion in the plain form on every
+    device."""
+    pf = _feedforward(burst, toa, feedforward)
+    rot = copy_table(gmsk.rotation(burst.shape[-1], sps), burst.device)
+    return feedback_recursion_plain(pf, feedback.to(torch.complex64), rot)
+
+
 def equalize_burst(burst: torch.Tensor, toa: torch.Tensor, sps: int,
                    feedforward: torch.Tensor,
                    feedback: torch.Tensor) -> torch.Tensor:
@@ -83,27 +126,13 @@ def equalize_burst(burst: torch.Tensor, toa: torch.Tensor, sps: int,
     sigProcLib.cpp:1343-1399).
 
     burst: [B, T] complex (symbol-rate); toa: [B]; feedforward [B, Nf];
-    feedback [B, nu]. Un-delay by TOA, feedforward filter, then the
-    per-symbol recursion over the ring of the last nu rotated hard
-    decisions."""
-    assert burst.ndim == 2, "equalize_burst expects [batch, time]"
-    bsz, t = burst.shape
-    nf = feedforward.shape[-1]
-    nu = feedback.shape[-1]
-
-    x = gmsk.delay_vector(burst, -toa.to(torch.float32))
-    pf = fir.convolve(x, feedforward, fir.CUSTOM, start=nf - 1, length=t)
-
-    rot = copy_table(gmsk.rotation(t, sps), burst.device)
-    rev = torch.conj_physical(rot)
+    feedback [B, nu]. Un-delay by TOA and feedforward filter (eager ops),
+    then the per-symbol recursion over the ring of the last nu rotated
+    hard decisions: on a CUDA tensor one launch of K5
+    (`cuda_dfe.equalize_cuda`), on the CPU `feedback_recursion_plain`."""
+    pf = _feedforward(burst, toa, feedforward)
+    rot = copy_table(gmsk.rotation(burst.shape[-1], sps), burst.device)
     b = feedback.to(torch.complex64)
-    hist = torch.zeros((bsz, nu), dtype=torch.complex64, device=burst.device)
-    one = torch.ones((), dtype=torch.complex64, device=burst.device)
-    soft_pre = []
-    for i in range(t):
-        d = pf[:, i] + (b * hist).sum(-1)
-        s = d * rev[i]
-        dec = torch.where(s.real > 0.0, one, -one)
-        hist = torch.cat([(dec * rot[i])[:, None], hist[:, :-1]], 1)
-        soft_pre.append(s)
-    return gmsk.vector_slicer(torch.stack(soft_pre, -1))  # [B, T]
+    if pf.is_cuda:
+        return cuda_dfe.equalize_cuda(pf.contiguous(), b.contiguous(), rot)
+    return feedback_recursion_plain(pf, b, rot)

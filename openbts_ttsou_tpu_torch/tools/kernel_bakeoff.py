@@ -5,7 +5,9 @@ same filter bank with TF32 off (a yardstick the port never calls). K7,
 the threshold walk, two ways (`bake_walk`): the kernel and
 `exact_walk_plain`, at `K7_SHAPES`; K8, the Viterbi decoder, two ways
 (`bake_viterbi`): the kernel and `viterbi_decode_plain`, at
-`K8_SHAPES` (`chip_smoke.py` phase 2 runs both). `ptxas_usage` reads
+`K8_SHAPES`; K5, the DFE's feedback recursion, two ways
+(`bake_equalize`): the kernel and `feedback_recursion_plain`, at
+`K5_SHAPES` (`chip_smoke.py` phase 2 runs all three). `ptxas_usage` reads
 each kernel's registers, stack and spills from the build's output.
 
 For each shape: device ms of each path (CUDA events, the calls queued
@@ -44,6 +46,12 @@ K1_SHAPES = ((N_CHAN, 65, 96, 961, 24000), (N_CHAN, 96, 65, 651, 16250),
 #: K7's shapes on the main paths, (frames, carriers) of [F, C, 8]: the
 #: 13-frame block at 512 carriers and at the batched schedule's largest
 K7_SHAPES = ((13, N_CHAN), (13, 4 * N_CHAN))
+
+#: K5's shapes on the main paths, (bursts, T, ν) of [B, T]: a 13-frame
+#: block of 512 carriers (the bank's call) and one frame of them (the
+#: per-frame daemon's `rx_step`)
+K5_SHAPES = ((13 * 8 * N_CHAN, roofline.T, roofline.NU),
+             (8 * N_CHAN, roofline.T, roofline.NU))
 
 #: K8's shapes on the main paths, (code, rows, K) of [rows, 2K]: the four
 #: calls of a resident window at 512 carriers
@@ -201,6 +209,58 @@ def bake_viterbi(code: str, rows: int, k: int, gen: torch.Generator,
             "max_abs_err": int((got.int() - want.int()).abs().max()),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": bound_by, "bound_share": bound / ms,
+            "host_queue_share": ahead}
+
+
+def equalize_inputs(bursts: int, t: int, nu: int,
+                    gen: torch.Generator) -> tuple:
+    """(pf, feedback, rot) on the card as the equalizer sees them: ±1
+    symbols rotated, the feedback's interference of the symbols before
+    them, complex noise of 0.4; taps of falling size."""
+    from openbts_ttsou_tpu_torch.ops import gmsk
+
+    dev = torch.device("cuda")
+    rot = torch.from_numpy(gmsk.rotation(t, 1)).to(dev)
+
+    def cnormal(shape):
+        return torch.randn(shape, dtype=torch.complex64, generator=gen,
+                           device=dev)
+
+    fb = cnormal((bursts, nu)) * (0.5 ** torch.arange(
+        1, nu + 1, device=dev))
+    sign = torch.randint(0, 2, (bursts, t), generator=gen, device=dev) * 2 - 1
+    sym = sign * rot
+    pf = sym + 0.4 * cnormal((bursts, t)) * rot
+    for j in range(nu):
+        pf[:, j + 1:] -= fb[:, j: j + 1] * sym[:, : t - j - 1]
+    return pf.contiguous(), fb.contiguous(), rot
+
+
+def bake_equalize(bursts: int, t: int, nu: int, gen: torch.Generator,
+                  reps: int = 25) -> dict:
+    """K5 at [bursts, t], ν taps, on the card: the kernel's and the plain
+    form's device ms, the kernel's bound (`roofline.k5_recursion_work`)
+    and the count of soft bits that differ from the plain form's (0:
+    bit for bit)."""
+    from openbts_ttsou_tpu_torch.ops import cuda_dfe, dfe
+
+    pf, fb, rot = equalize_inputs(bursts, t, nu, gen)
+    got = cuda_dfe.equalize_cuda(pf, fb, rot)
+    want = dfe.feedback_recursion_plain(pf, fb, rot)
+    torch.cuda.synchronize()
+    work = roofline.k5_recursion_work(bursts, t, nu)
+    bound, bound_by = roofline.bound_ms(work, common.HBM_BYTES_PER_S,
+                                        common.FP32_FLOPS)
+    ms, ahead = common.cuda_ms(lambda: cuda_dfe.equalize_cuda(pf, fb, rot),
+                               reps)
+    # ~1,450 launches a call: its interval is the host's dispatch
+    plain_ms, _ = common.cuda_ms(
+        lambda: dfe.feedback_recursion_plain(pf, fb, rot), 3)
+    return {"geometry": f"[{bursts}, {t}] nu {nu}",
+            "differ": int((got != want).sum()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "bound_share": bound / ms,
+            "gbytes_per_s": work.bytes / ms / 1e6,
             "host_queue_share": ahead}
 
 

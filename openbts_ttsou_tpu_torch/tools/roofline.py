@@ -171,6 +171,14 @@ def k5_work(bursts: int) -> Work:
                 bursts * (T * C64 + F32 + (NF + NU) * C64 + T * F32))
 
 
+def k5_recursion_work(bursts: int, t: int = T, nu: int = NU) -> Work:
+    """The part of `k5_work` that K5's kernel runs: the recursion and the
+    slicer over the feedforward output; bytes pf and the taps in, the
+    rotation once, the soft bits out."""
+    return Work(bursts * t * (CMAC * nu + 11 + 3),
+                bursts * (t * C64 + nu * C64 + t * F32) + t * C64)
+
+
 def k6_work(bursts: int) -> Work:
     flops = 7 + 6 * T + SINC + SINC * RMAC * T + 6 * T + 3 * T
     return Work(bursts * flops, bursts * (T * C64 + C64 + F32 + T * F32))

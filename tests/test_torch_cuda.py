@@ -9,13 +9,16 @@ import numpy as np
 import pytest
 import torch
 
+import equalize_cases
 import viterbi_cases
 import walk_cases
 from openbts_ttsou_tpu_torch.gsm import fec
 from openbts_ttsou_tpu_torch.models import transceiver as T
+from openbts_ttsou_tpu_torch.ops import cuda_dfe
 from openbts_ttsou_tpu_torch.ops import cuda_fir
 from openbts_ttsou_tpu_torch.ops import cuda_viterbi
 from openbts_ttsou_tpu_torch.ops import cuda_walk
+from openbts_ttsou_tpu_torch.ops import dfe
 from openbts_ttsou_tpu_torch.ops import fir
 from openbts_ttsou_tpu_torch.ops import gmsk
 from openbts_ttsou_tpu_torch.trx import engine as eng
@@ -881,3 +884,199 @@ def test_exact_schedules_agree_at_512_carriers(card, max_delay, traffic):
         det, rach = b[1].detected.cpu().numpy(), b[1].is_rach.cpu().numpy()
         assert not (expect["detect"] & ~det).any()
         assert not (expect["rach"] & ~rach).any() and expect["rach"].any()
+
+
+# ---- K5, the DFE's feedback recursion ---------------------------------------
+
+def _bits(x: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(x).view(np.uint32)
+
+
+@pytest.mark.cuda
+def test_equalizer_eager_ops_round_as_k5_copies_them(card):
+    """The plain form's own ops on the card, against `equalize_cases`'
+    exact float32 models: its complex products (the feedback's [B, ν]
+    by [B, ν] and a step's strided [B] by a 0-d rotation) are
+    c10::complex's with nvcc's FMA contraction, `KERNEL_CMUL`; its sum
+    over ν contiguous products is PyTorch's reduction order,
+    `KERNEL_SUM` (lanes paired at falling distance), at each ν K5 is
+    built for. K5 copies both. A failure names how many values each
+    candidate form matched."""
+    E = equalize_cases
+    rng = np.random.default_rng(31)
+    n = 5 * 8192
+
+    def cplx(size):
+        return E._c64(rng.normal(size=size) + 1j * rng.normal(size=size))
+
+    x, y = cplx(n), cplx(n)
+    got = (torch.from_numpy(x).cuda().reshape(-1, 5)
+           * torch.from_numpy(y).cuda().reshape(-1, 5)).cpu().numpy()
+    counts = {f: int((_bits(E.cmul32(x, y, f)) == _bits(got.reshape(-1))
+                      ).sum()) for f in E.CMUL_FORMS}
+    assert counts[E.KERNEL_CMUL] == 2 * n, counts
+    pf = torch.from_numpy(cplx((4096, 9))).cuda()
+    rev = torch.from_numpy(np.conj(E.rotation(9).numpy())).cuda()
+    got = (pf[:, 7] * rev[7]).cpu().numpy()
+    want = E.cmul32(pf[:, 7].cpu().numpy(), rev[7].cpu().numpy())
+    assert np.array_equal(_bits(got), _bits(want))
+    for nu in cuda_dfe.DEPTHS:
+        p = cplx((8192, nu))
+        got = torch.from_numpy(p).cuda().sum(-1).cpu().numpy()
+        counts = {o: int((_bits(E.tree_sum32(p, o)) == _bits(got)).sum())
+                  for o in E.SUM_ORDERS}
+        assert counts[E.KERNEL_SUM] == 2 * 8192, (nu, counts)
+
+
+def _k5(pf, fb, rot):
+    n0 = cuda_dfe.equalize_cuda.launches
+    got = cuda_dfe.equalize_cuda(pf, fb, rot)
+    assert cuda_dfe.equalize_cuda.launches == n0 + 1
+    assert got.dtype == torch.float32 and got.shape == pf.shape
+    assert got.is_cuda and got.is_contiguous()
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bursts", [8, 4096, 53248])
+def test_equalize_kernel_matches_plain(card, bursts):
+    """K5 against `feedback_recursion_plain` on the card, every soft bit
+    equal, at a per-frame daemon's width, a mid width and a 13-frame
+    block of 512 carriers, T = 157, ν 5 and 1; and against the numpy
+    model of its arithmetic on the first 64 bursts."""
+    for nu in (5, 1):
+        pf, fb, rot = equalize_cases.signal_inputs(
+            bursts, equalize_cases.T, nu, 7 * bursts + nu, "cuda")
+        got = _k5(pf, fb, rot)
+        want = dfe.feedback_recursion_plain(pf, fb, rot)
+        assert torch.equal(got, want), (nu, int((got != want).sum()))
+        m = min(bursts, 64)
+        model = equalize_cases.recursion_model(
+            pf[:m].cpu().numpy(), fb[:m].cpu().numpy(), rot.cpu().numpy())
+        assert np.array_equal(got[:m].cpu().numpy(), model), nu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nu", [1, 5])
+def test_equalize_kernel_takes_any_depth_and_length(card, nu):
+    """Each instantiated ν (`cuda_dfe.DEPTHS`), at T of 1, 31, 32, 33 (a
+    staged tile's edges), 157 and 628 (four samples a symbol), B of 1,
+    31 and 33."""
+    for bursts, t in ((1, 1), (31, 31), (33, 32), (33, 33), (31, 157),
+                      (33, 628)):
+        pf, fb, rot = equalize_cases.signal_inputs(bursts, t, nu,
+                                                   100 * nu + t, "cuda")
+        if t == 628:
+            rot = equalize_cases.rotation(t, 4, "cuda")
+        got = _k5(pf, fb, rot)
+        want = dfe.feedback_recursion_plain(pf, fb, rot)
+        assert torch.equal(got, want), (bursts, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nu", [5, 1])
+def test_equalize_kernel_on_the_threshold(card, nu):
+    """The borderline set: most steps end within a few ulps of
+    s.real = 0 on the plain form's path on the card, some exactly on it
+    (decided −1), and K5 makes every decision and soft bit the same;
+    NaN feedforward outputs as the plain form takes them."""
+    pf, fb, rot = equalize_cases.borderline_inputs(4096, equalize_cases.T,
+                                                   nu, 50 + nu, "cuda")
+    got = _k5(pf, fb, rot)
+    want = dfe.feedback_recursion_plain(pf, fb, rot)
+    near = (want - 0.5).abs() < 1e-6
+    assert float(near.float().mean()) > 0.5 and bool((want == 0.5).any())
+    assert torch.equal(got, want), int((got != want).sum())
+    pf[5, 40] = float("nan")
+    pf[6, 0] = complex(float("nan"), 0.0)
+    got = _k5(pf, fb, rot)
+    want = dfe.feedback_recursion_plain(pf, fb, rot)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    assert bool(got[5, 40].isnan()) and bool(got[6, 0].isnan())
+    assert not bool(got[5, 41:].isnan().any())  # the decision was −1
+
+
+@pytest.mark.cuda
+def test_equalize_kernel_is_deterministic(card):
+    pf, fb, rot = equalize_cases.signal_inputs(53248, equalize_cases.T, 5,
+                                               77, "cuda")
+    first = _k5(pf, fb, rot)
+    for _ in range(4):
+        assert torch.equal(_k5(pf, fb, rot), first)
+    pf2, fb2, rot2 = equalize_cases.zero_decision_case("cuda")
+    zero = _k5(pf2, fb2, rot2)
+    assert float(zero[0, 0]) == 0.5 and float(zero[0, 1]) < 1e-6
+
+
+@pytest.mark.cuda
+def test_equalize_kernel_refuses_bad_input(card):
+    pf, fb, rot = equalize_cases.signal_inputs(4, equalize_cases.T, 5, 3,
+                                               "cuda")
+    bad = equalize_cases.refusals(pf, fb, rot) + [
+        ((pf.cpu(), fb, rot), ValueError),
+        ((pf, fb.cpu(), rot), ValueError),
+        ((pf, fb, rot.cpu()), ValueError)]
+    n0 = cuda_dfe.equalize_cuda.launches
+    for args, err in bad:
+        with pytest.raises(err):
+            cuda_dfe.equalize_cuda(*args)
+    assert cuda_dfe.equalize_cuda.launches == n0
+    empty = cuda_dfe.equalize_cuda(pf[:0], fb[:0], rot)
+    assert empty.shape == (0, equalize_cases.T)
+    assert cuda_dfe.equalize_cuda.launches == n0
+
+
+@pytest.mark.cuda
+def test_tu_rach_entry_launches_k5_once_a_block(card, monkeypatch):
+    """The benchmark's `rxbank512dfe` entry (`trxbench/entries/uplink.py`)
+    at 8 carriers on 3 blocks of its `tu_rach` traffic: K5 launches once
+    a block; the results and carried state equal, bit for bit, those of
+    the same entry on the card with `equalize_burst_plain` in the
+    equalizer's place; and they agree with a CPU run's on the same
+    samples by the card-against-CPU rule of `chip_smoke.py` (flags, RSSI
+    and timing equal, soft bits within 2e-4, integer state equal, float
+    state within atol 2e-4, rtol 5e-6)."""
+    import json
+    from pathlib import Path
+
+    from openbts_ttsou_tpu_torch.convert import state_to_numpy
+    from trxbench.entries import uplink
+    from trxbench.generators import multipath
+
+    root = Path(__file__).resolve().parents[1] / "trxbench"
+    c = 8
+    config = dict(json.loads((root / "configs" / "rxbank512dfe.json"
+                              ).read_text()), carriers=c)
+    par = dict(json.loads((root / "traffic" / "tu_rach.json").read_text()
+                          )["params"], pool=3)
+    entries = {name: uplink.Entry(config, torch.device(dev))
+               for name, dev in (("k5", "cuda"), ("plain", "cuda"),
+                                 ("cpu", "cpu"))}
+    items = entries["k5"].make_inputs(multipath, par, 2 ** 31 + 2121)
+    for x in items:
+        n0 = cuda_dfe.equalize_cuda.launches
+        got = entries["k5"].call(x)
+        assert cuda_dfe.equalize_cuda.launches == n0 + 1
+        with monkeypatch.context() as m:
+            m.setattr(dfe, "equalize_burst", dfe.equalize_burst_plain)
+            want = entries["plain"].call(x)
+        assert cuda_dfe.equalize_cuda.launches == n0 + 1
+        cpu = entries["cpu"].call(x.cpu())
+        for name in got._fields:
+            g = getattr(got, name)
+            assert torch.equal(g, getattr(want, name)), name
+            if name == "soft_bits":
+                assert float((g.cpu() - cpu.soft_bits).abs().max()) <= 2e-4
+            else:
+                assert torch.equal(g.cpu(), getattr(cpu, name)), name
+        sg, sp = entries["k5"].state(), entries["plain"].state()
+        for name in sg._fields:
+            assert torch.equal(getattr(sg, name), getattr(sp, name)), name
+        sc = state_to_numpy(entries["cpu"].state())
+        for name, a in state_to_numpy(sg).items():
+            if a.dtype == bool or np.issubdtype(a.dtype, np.integer):
+                assert np.array_equal(a, sc[name]), name
+            else:
+                assert np.allclose(a, sc[name], atol=2e-4, rtol=5e-6), name
+        assert bool(got.detected.any())
+    assert bool(entries["k5"].state().chan_valid.any())
